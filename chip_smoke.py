@@ -10,17 +10,28 @@ JAX package. Phases (each raises on failure):
    ``nvidia-smi`` name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with the tolerance stated beside each check, and
-   time kernel, plain version and (K3) the library product with CUDA
-   events (median of repeats).
-3. The main path, with every launch count set to 0 first:
+   time kernel, plain version and the library call (where one exists) with
+   CUDA events (median of repeats). K3, K4 and K5 take inputs made from the
+   real dense10k Σ at the init parameters; K4 and K5 are held to an f64
+   factor computed on the card: their error may be at most twice the plain
+   float32 version's.
+3. The main paths, each driven with every launch count set to 0 just
+   before it and read just after; each path's kernels must have launched:
    - the canonical route (``main.run``, p53, float64) and the golden
      row-path fit (``trainer.fit``) held to ``tests/test_golden.py``;
+   - the blocked engine at N = 1e4 on the real Σ: ``blocked_cholesky_t``
+     (K4), ``blocked_cholesky(diag='pallas')`` (K5) and
+     ``diag='pallas_inv'`` (K4), each reconstructing Σ no worse than twice
+     cuSOLVER's factor, and ``inv_from_factor_tril`` from the factor's
+     diagonal inverses (K3) against its plain version;
    - the dense10k route (``main.run_dense``, 50 x 200 = 1e4, float32,
-     10 Adam steps): per-step ms, peak memory, losses finite;
-   - ``latent_predict`` at N = 1e4 on the 200-point training grid.
-   The counts are read just after; each kernel must have launched.
-4. The dense route's first step through the kernels against the plain
-   float32 path (loss rel 1e-5, gradient direction cosine >= 0.999).
+     10 Adam steps), whose ``'auto'`` engine is ``'xla'``: per-step ms,
+     peak memory;
+   - ``latent_predict`` at N = 1e4 on the 200-point training grid;
+   - the same 10 steps on the same data through
+     ``ExactSIMM(chol_impl='blocked')``, with run_dense's training loop.
+4. Each dense route's first step against the plain float32 path (loss rel
+   1e-5, gradient direction cosine >= 0.999), and its stage breakdown.
 5. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
@@ -29,6 +40,7 @@ import math
 import statistics
 import subprocess
 import sys
+import time
 
 
 def fail(msg):
@@ -99,7 +111,8 @@ def main():
     from dis_project_tpu_torch import main as port_main
     from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
     from dis_project_tpu_torch.models import simm
-    from dis_project_tpu_torch.ops import cuda_build, cuda_cholesky, cuda_gram
+    from dis_project_tpu_torch.ops import cuda_build, cuda_gram
+    from dis_project_tpu_torch.ops import cuda_cholesky as cc
     from dis_project_tpu_torch.ops import gram as gram_ops
     from dis_project_tpu_torch.ops import mll as mll_ops
     from dis_project_tpu_torch.ops.precision import default_device
@@ -111,7 +124,7 @@ def main():
     f32, f64 = torch.float32, torch.float64
 
     # -- phase 1: build ----------------------------------------------------
-    build_s = cuda_build.build(["simm_gram", "syrk"])
+    build_s = cuda_build.build(["simm_gram", "syrk", "chol_block"])
     smi = nvidia_smi_line()
     print(f"[build] kernels built in {build_s:.1f}s")
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -204,7 +217,7 @@ def main():
         check_k2(mixed_rows(1037, 5, dtype), d5, s5, l5, "mixed", atol, timed=False)
     check_k2(Xd, d32, s32, l32, "xx", 5e-5, timed=True)
 
-    # K3 on the inverse factor of a REAL dense10k Sigma at the init params
+    # K3, K4 and K5 on inputs from a REAL dense10k Sigma at the init params
     # (random A A^T + n I matrices are far better conditioned than a SIMM
     # Gram and prove little).
     dense_data = port_main.synthetic_dense_data(G, T, seed=0, dtype=f32, device=dev)
@@ -214,46 +227,127 @@ def main():
     with torch.no_grad():
         sigma = mll_ops.add_diagonal(model32.gram(p0, Xr, "xx"),
                                      model32.jitter + p0.obs_stddev**2)
-        L = mll_ops.cholesky(sigma)
-        Li = cuda_cholesky.tri_inv(L)
-    del sigma, L
-    ker = cuda_cholesky.syrk_ltl_tril_kernel(Li)
-    ref = cuda_cholesky.syrk_ltl_tril_plain(Li)
+        L_cusolver = mll_ops.cholesky(sigma)
+        Li = cc.tri_inv(L_cusolver)
+    ker = cc.syrk_ltl_tril_kernel(Li)
+    ref = cc.syrk_ltl_tril_plain(Li)
     torch.cuda.synchronize()
     err = float((ker - ref).abs().max())
     rel = err / float(ref.abs().max())
     # FP32 FMA sums over up to 1e4 terms in another order than cuBLAS:
     # ~sqrt(n) eps relative to the largest entry; 1e-4 leaves room.
+    K3_REL_LIMIT = 1e-4
     print(f"[K3] syrk_ltl_tril {Li.shape[0]} f32 (real Sigma): max abs err {err:.3e}, "
-          f"rel to max {rel:.3e} (limit 1e-4)")
-    require(math.isfinite(rel) and rel <= 1e-4, f"K3 disagrees: rel {rel}")
+          f"rel to max {rel:.3e} (limit {K3_REL_LIMIT:g})")
+    require(math.isfinite(rel) and rel <= K3_REL_LIMIT, f"K3 disagrees: rel {rel}")
     require(bool(torch.all(torch.triu(ker, 1) == 0)), "K3 wrote above the diagonal")
     n = Li.shape[0]
     syrk_flops = 2 * sum((a + 1) * (n - a) for a in range(n))
     b, by = bound_ms(n * (n + 1) // 2 * 4 + n * n * 4, syrk_flops)
     records["K3"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: cuda_cholesky.syrk_ltl_tril_kernel(Li)),
-        plain_ms=cuda_ms(lambda: cuda_cholesky.syrk_ltl_tril_plain(Li)),
+        ms=cuda_ms(lambda: cc.syrk_ltl_tril_kernel(Li)),
+        plain_ms=cuda_ms(lambda: cc.syrk_ltl_tril_plain(Li)),
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(lambda: torch.tril(Li.T @ Li)),
         shape=f"{n}x{n} f32",
     )
     del ker, ref, Li
+
+    # K4 / K5 on diagonal blocks of the real Sigma, held to an f64 factor
+    # computed on the card: each kernel's error may be at most twice the
+    # plain float32 version's (cuSOLVER), for L and for Li L - I.
+    def block_errors(L, Li, A):
+        truth = torch.linalg.cholesky(A.double())
+        e_l = float((L.double() - truth).abs().max())
+        if Li is None:
+            return e_l, None
+        eye = torch.eye(A.shape[0], dtype=f64, device=dev)
+        return e_l, float((Li.double() @ L.double() - eye).abs().max())
+
+    def check_block_kernel(key, B, timed):
+        off = (sigma.shape[0] // 2) // B * B  # a block from the middle of Sigma
+        A = sigma[off:off + B, off:off + B].contiguous()
+        if key == "K4":
+            kout, pout = cc.chol_inv_unblocked_kernel(A), cc.chol_inv_unblocked_plain(A)
+        else:
+            kout, pout = (cc.chol_unblocked_kernel(A), None), (cc.cholesky_nan(A), None)
+        torch.cuda.synchronize()
+        ek, pk = block_errors(*kout, A), block_errors(*pout, A)
+        vs_plain = max(float((k - p).abs().max()) for k, p in zip(kout, pout) if k is not None)
+        print(f"[{key}] B={B} (real Sigma block at {off}): kernel vs f64 L {ek[0]:.3e}, "
+              f"LiL-I {ek[1]}; plain f32 vs f64 L {pk[0]:.3e}, LiL-I {pk[1]}; "
+              f"kernel vs plain {vs_plain:.3e} (limit: 2x the plain error)")
+        for e, p, what in zip(ek, pk, ("L", "LiL-I")):
+            if e is not None:
+                require(math.isfinite(e) and e <= 2 * p, f"{key} B={B} {what}: {e} > 2 x {p}")
+        require(bool(torch.all(torch.triu(kout[0], 1) == 0)), f"{key} wrote above the diagonal")
+        if key == "K4":
+            fn, plain = cc.chol_inv_unblocked_kernel, cc.chol_inv_unblocked_plain
+            b, by = bound_ms(3 * B * B * 4, 2 * B**3 / 3)
+        else:
+            fn, plain = cc.chol_unblocked_kernel, cc.cholesky_nan
+            b, by = bound_ms(2 * B * B * 4, B**3 / 3)
+        rec = dict(max_abs_err=vs_plain, ms=cuda_ms(lambda: fn(A), reps=20),
+                   plain_ms=cuda_ms(lambda: plain(A), reps=20), bound_ms=b, bound_by=by,
+                   library_ms=None, shape=f"{B}x{B} f32")
+        if key == "K5":
+            rec["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(A), reps=20)
+        else:
+            # No single library call computes L and L^{-1}: the cuSOLVER +
+            # cuBLAS pair, for information only.
+            eye = torch.eye(B, dtype=f32, device=dev)
+            rec["pair_ms"] = cuda_ms(lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky(A), eye, upper=False), reps=20)
+        print(f"[{key}] B={B}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+              f"bound_ms {b:.5f} ({by}) library_ms {rec['library_ms']} "
+              f"cholesky+solve pair ms {rec.get('pair_ms')}")
+        if timed:
+            records[key] = rec
+
+    # The shapes of the main path: K4 at B=128 (blocked_cholesky_t's
+    # diagonal step), K5 at B=512 (blocked_cholesky's); the others shown.
+    for key, B, timed in (("K4", 128, True), ("K4", 512, False),
+                          ("K5", 96, False), ("K5", 512, True)):
+        check_block_kernel(key, B, timed)
     for name, r in records.items():
         print(f"[{name}] {r['shape']}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) library_ms {r['library_ms']}")
+              f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) library_ms {r['library_ms']}")
 
-    # -- phase 3: the main path, counts from 0 ----------------------------
-    for counts in (cuda_gram.LAUNCHES, cuda_cholesky.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    # -- phase 3: the main paths, counts from 0 before each ------------------
+    counters = (cuda_gram.LAUNCHES, cc.LAUNCHES)
+    main_counts = {k: 0 for c in counters for k in c}
 
-    def launches():
-        return {**cuda_gram.LAUNCHES, **cuda_cholesky.LAUNCHES}
+    def drive(what, fn, must_launch):
+        for counts in counters:
+            for k in counts:
+                counts[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for c in counters for k, v in c.items()}
+        for k, v in got.items():
+            main_counts[k] += v
+        print(f"[{what}] launches {got}")
+        for k in must_launch:
+            require(got[k] > 0, f"{what}: kernel {k} was not launched")
+        return out
 
-    # Canonical route through the CLI's entry point, float64.
-    canon = port_main.run(cfg.RunConfig(preset="p53", device="cuda"))
+    # Canonical route through the CLI's entry point, float64, and the golden
+    # row path (tests/test_golden.py), whose training Gram is K2.
+    def canonical_route():
+        canon = port_main.run(cfg.RunConfig(preset="p53", device="cuda"))
+        data = P53Data(replicate=0, source="synthetic", seed=0)
+        X, y, var = train_arrays(data, dev, f64)
+        golden_model = simm.ExactSIMM(num_genes=5, jitter=1e-4)
+        mll0 = float(golden_model.mll(simm.init_params(5, dtype=f64, device=dev), X, y))
+        res = tr.fit(golden_model, simm.init_params(5, dtype=f64, device=dev), X, y,
+                     tr.TrainConfig())
+        rows = torch.tensor([[2.0, -1.0, 0.0], [6.0, -1.0, 0.0], [11.0, -1.0, 0.0]],
+                            dtype=f64, device=dev)
+        probe = golden_model.latent_predict(res.params, rows, X, y, var).mean.cpu().tolist()
+        return canon, mll0, res, probe
+
+    canon, mll0, res, probe = drive("canonical", canonical_route, ("gram_rect", "gram_sym"))
     for what, dist, n_pts in (("latent", canon.latent, 100),
                               ("expression", canon.expression, 500)):
         require(dist.mean.shape == (n_pts,) and dist.cov.shape == (n_pts, n_pts),
@@ -263,18 +357,8 @@ def main():
     gridded_final = float(canon.result.history[-1])
     print(f"[canonical] gridded route final loss {gridded_final!r} (golden 4.810708070243)")
     require(abs(gridded_final - 4.810708070243) <= 1e-6, "gridded final loss off golden")
-
-    # The golden row path (tests/test_golden.py): the training Gram is K2.
-    data = P53Data(replicate=0, source="synthetic", seed=0)
-    X, y, var = train_arrays(data, dev, f64)
-    golden_model = simm.ExactSIMM(num_genes=5, jitter=1e-4)
-    mll0 = float(golden_model.mll(simm.init_params(5, dtype=f64, device=dev), X, y))
-    res = tr.fit(golden_model, simm.init_params(5, dtype=f64, device=dev), X, y, tr.TrainConfig())
     final = float(res.history[-1])
     decay = res.params.decay.detach().cpu().tolist()
-    rows = torch.tensor([[2.0, -1.0, 0.0], [6.0, -1.0, 0.0], [11.0, -1.0, 0.0]],
-                        dtype=f64, device=dev)
-    probe = golden_model.latent_predict(res.params, rows, X, y, var).mean.cpu().tolist()
     print(f"[golden] mll@init {mll0!r} final loss {final!r} decay {decay} probe {probe}")
     require(abs(mll0 - -43.69118241179048) <= 1e-8, "MLL at init off golden (abs 1e-8)")
     require(abs(final - 4.810708070243) <= 1e-6, "final loss off golden (abs 1e-6)")
@@ -284,33 +368,109 @@ def main():
     require(all(abs(a - b) <= 2e-4 for a, b in zip(
         probe, [1.34483514, 1.31897536, 0.1286597])),
         "latent probe means off golden (atol 2e-4)")
-    canonical_counts = launches()
-    print(f"[canonical] launches {canonical_counts}")
 
-    # Dense route, float32, through K2 and K3.
-    torch.cuda.reset_peak_memory_stats(dev)
-    dense = port_main.run_dense(cfg.RunConfig(
-        preset="dense10k", synth_genes=G, synth_timepoints=T, num_iters=DENSE_STEPS,
-        x64=False, device="cuda",
-    ))
-    torch.cuda.synchronize()
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    hist = dense.result.history.tolist()
-    step_ms = [1e3 * s for s in dense.step_seconds]
-    steady_ms = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
-    dense_counts = {k: v - canonical_counts[k] for k, v in launches().items()}
-    print(f"[dense] N={dense.X.shape[0]} losses {hist}")
-    print(f"[dense] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) {steady_ms:.3f}; "
-          f"peak memory {peak_gib:.3f} GiB; launches {dense_counts}")
-    require(all(math.isfinite(v) for v in hist), "dense losses not finite")
-    require(dense_counts["gram_sym"] > 0 and dense_counts["syrk_ltl_tril"] > 0,
-            "dense route did not launch K2 and K3")
+    # The blocked engine at N = 1e4 on the real Sigma: each factor finite
+    # and reconstructing Sigma no worse than twice cuSOLVER's factor.
+    sigma_max = float(sigma.abs().max())
+
+    def recon(L):
+        L64 = L.double()
+        return float((L64 @ L64.T - sigma.double()).abs().max()) / sigma_max
+
+    rec_cusolver = recon(L_cusolver)
+
+    Lt, dinvs = drive("blocked_cholesky_t N=1e4",
+                      lambda: cc.blocked_cholesky_t(sigma, return_diag_inv=True),
+                      ("chol_inv_unblocked",))
+    L_t = Lt.T.contiguous()
+    del Lt
+    L_k5 = drive("blocked_cholesky pallas N=1e4",
+                 lambda: cc.blocked_cholesky(sigma, block=512, diag="pallas"),
+                 ("chol_unblocked",))
+    L_k4 = drive("blocked_cholesky pallas_inv N=1e4",
+                 lambda: cc.blocked_cholesky(sigma, block=512, diag="pallas_inv"),
+                 ("chol_inv_unblocked",))
+    tril_inv = drive("inv_from_factor_tril N=1e4",
+                     lambda: cc.inv_from_factor_tril(L_t, diag_inv=dinvs), ("syrk_ltl_tril",))
+    for what, L in (("blocked_cholesky_t (K4)", L_t), ("blocked_cholesky pallas (K5)", L_k5),
+                    ("blocked_cholesky pallas_inv (K4)", L_k4)):
+        require(bool(torch.isfinite(L).all()), f"{what}: factor not finite")
+        r = recon(L)
+        print(f"[blocked engine] {what}: max|LL^T - Sigma|/max|Sigma| {r:.3e} "
+              f"(cuSOLVER {rec_cusolver:.3e}, limit 2x)")
+        require(r <= 2 * rec_cusolver, f"{what}: reconstruction {r} > 2 x {rec_cusolver}")
+    # The same left-looking algorithm with cuSOLVER diagonal steps, for
+    # information: the share of the error that is the algorithm's (its
+    # TRSM is a product with the diagonal inverse), not the kernels'.
+    print(f"[blocked engine] blocked_cholesky xla diag (no kernel): "
+          f"{recon(cc.blocked_cholesky(sigma, block=512, diag='xla')):.3e}")
+    del L_k5, L_k4
+    plain_tril = cc.inv_from_factor_tril(L_t, diag_inv=dinvs, kernels=False)
+    rel = float((tril_inv - plain_tril).abs().max()) / float(plain_tril.abs().max())
+    print(f"[blocked engine] inv_from_factor_tril(diag_inv) K3 vs plain: rel to max {rel:.3e} "
+          f"(limit {K3_REL_LIMIT:g})")
+    require(math.isfinite(rel) and rel <= K3_REL_LIMIT, "inv_from_factor_tril K3 vs plain")
+    del plain_tril, tril_inv, L_t, dinvs, L_cusolver, sigma
+
+    # The dense route, float32, through each engine of the MLL: 'xla' (what
+    # 'auto' resolves to) through the CLI's entry point, 'blocked' through
+    # the library API on the same data, with run_dense's training loop.
+    def blocked_dense_steps(base):
+        model = simm.ExactSIMM(num_genes=G, jitter=cfg.EXACT_JITTER, canonical_rows=True,
+                               chol_impl="blocked")
+        optimizer = generic.Adam(0.01)
+        raw = simm.unconstrain(simm.init_params(G, dtype=f32, device=dev))
+        opt_state = optimizer.init(raw)
+        losses, norms, step_seconds = [], [], []
+        for _ in range(DENSE_STEPS):
+            ts = time.perf_counter()
+            loss, grads = generic.value_and_grad(
+                lambda r: -model.mll(simm.constrain(r), base.X, base.y), raw)
+            updates, opt_state = optimizer.update(grads, opt_state)
+            raw = generic.apply_updates(raw, updates)
+            losses.append(float(loss))  # host fetch: the step has finished
+            norms.append(float(generic.global_norm(grads)))
+            step_seconds.append(time.perf_counter() - ts)
+        result = tr.TrainResult(params=simm.constrain(raw), history=torch.tensor(losses, dtype=f64),
+                                grad_norms=torch.tensor(norms, dtype=f64), raw_params=raw,
+                                opt_state=opt_state)
+        return port_main.DenseRun(result, model, base.data, base.X, base.y, base.var,
+                                  step_seconds)
+
+    def dense_route(impl, base=None):
+        def run():
+            torch.cuda.reset_peak_memory_stats(dev)
+            if impl == "blocked":
+                return blocked_dense_steps(base)
+            return port_main.run_dense(cfg.RunConfig(
+                preset="dense10k", synth_genes=G, synth_timepoints=T,
+                num_iters=DENSE_STEPS, x64=False, device="cuda",
+            ))
+        must = ("gram_sym", "syrk_ltl_tril")
+        if impl == "blocked":
+            must += ("chol_inv_unblocked",)
+        dense = drive(f"dense {impl}", run, must)
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        hist = dense.result.history.tolist()
+        step_ms = [1e3 * s for s in dense.step_seconds]
+        steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+        print(f"[dense {impl}] N={dense.X.shape[0]} losses {hist}")
+        print(f"[dense {impl}] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) "
+              f"{steady:.3f}; peak memory {peak_gib:.3f} GiB")
+        require(all(math.isfinite(v) for v in hist), f"dense {impl} losses not finite")
+        return dense, steady, peak_gib
+
+    dense, steady_xla, peak_xla = dense_route("xla")
 
     # latent_predict at N = 1e4 on the 200-point training grid, through K1.
-    t_train = dense.data.timepoints
-    rows = torch.stack([t_train, -torch.ones_like(t_train), torch.zeros_like(t_train)], -1)
-    with torch.no_grad():
-        post = dense.model.latent_predict(dense.result.params, rows, dense.X, dense.y, dense.var)
+    def latent_route():
+        t_train = dense.data.timepoints
+        rows = torch.stack([t_train, -torch.ones_like(t_train), torch.zeros_like(t_train)], -1)
+        with torch.no_grad():
+            return dense.model.latent_predict(dense.result.params, rows, dense.X, dense.y,
+                                              dense.var)
+
+    post = drive("dense latent posterior", latent_route, ("gram_rect",))
     pmean, pvar = post.mean, post.variance()
     require(pmean.shape == (T,) and bool(torch.isfinite(pmean).all()
                                            and torch.isfinite(pvar).all()),
@@ -318,27 +478,28 @@ def main():
     corr = float(torch.corrcoef(torch.stack([pmean, dense.data.f_true]))[0, 1])
     print(f"[dense] latent posterior at N={dense.X.shape[0]}: finite, "
           f"corr with generating force {corr:.4f}")
-    main_counts = launches()
-    print(f"[main path] launches {main_counts}")
-    for k, v in main_counts.items():
-        require(v > 0, f"kernel {k} was not launched on the main path")
 
-    # -- phase 4: first dense step, kernels vs the plain f32 path ----------
-    plain_model = simm.ExactSIMM(num_genes=dense.model.num_genes, jitter=dense.model.jitter,
-                                 canonical_rows=True, kernels=False)
-    raw0 = simm.unconstrain(simm.init_params(dense.model.num_genes, dtype=f32, device=dev))
-    lk, gk = generic.value_and_grad(
-        lambda r: -dense.model.mll(simm.constrain(r), dense.X, dense.y), raw0)
+    dense_b, steady_blocked, peak_blocked = dense_route("blocked", base=dense)
+
+    # -- phase 4: each engine's first dense step vs the plain f32 path ------
+    plain_model = simm.ExactSIMM(num_genes=G, jitter=dense.model.jitter, canonical_rows=True,
+                                 kernels=False, chol_impl="xla")
+    raw0 = simm.unconstrain(simm.init_params(G, dtype=f32, device=dev))
     lp, gp = generic.value_and_grad(
         lambda r: -plain_model.mll(simm.constrain(r), dense.X, dense.y), raw0)
-    gk_v, gp_v = torch.cat([g.reshape(-1) for g in gk]), torch.cat([g.reshape(-1) for g in gp])
-    cos = float(gk_v @ gp_v / (gk_v.norm() * gp_v.norm()))
-    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
-    print(f"[dense] first step: loss kernels {float(lk)!r} plain {float(lp)!r} "
-          f"rel {loss_rel:.3e} (limit 1e-5); gradient cosine {cos:.6f} (limit 0.999)")
-    require(loss_rel <= 1e-5, "dense first-step loss: kernels vs plain")
-    require(cos >= 0.999, "dense first-step gradient direction: kernels vs plain")
-    require(abs(float(lk) - hist[0]) <= 1e-5 * abs(hist[0]), "run_dense step 1 loss")
+    gp_v = torch.cat([g.reshape(-1) for g in gp])
+    for impl, run in (("xla", dense), ("blocked", dense_b)):
+        lk, gk = generic.value_and_grad(
+            lambda r: -run.model.mll(simm.constrain(r), run.X, run.y), raw0)
+        gk_v = torch.cat([g.reshape(-1) for g in gk])
+        cos = float(gk_v @ gp_v / (gk_v.norm() * gp_v.norm()))
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        print(f"[dense {impl}] first step: loss kernels {float(lk)!r} plain {float(lp)!r} "
+              f"rel {loss_rel:.3e} (limit 1e-5); gradient cosine {cos:.6f} (limit 0.999)")
+        require(loss_rel <= 1e-5, f"dense {impl} first-step loss: kernels vs plain")
+        require(cos >= 0.999, f"dense {impl} first-step gradient direction: kernels vs plain")
+        hist0 = float(run.result.history[0])
+        require(abs(float(lk) - hist0) <= 1e-5 * abs(hist0), f"run_dense {impl} step 1 loss")
 
     # Where one dense step's device time goes: each stage of the loss and
     # its backward, timed alone with CUDA events at the init point.
@@ -348,36 +509,64 @@ def main():
         c = dense.model.jitter + p.obs_stddev**2
         K = cuda_gram.gram_sym_kernel(dense.X, dd, ss, ll, "xx")
         sigma = mll_ops.add_diagonal(K, c)
-        L = mll_ops.cholesky(sigma)
         yc = dense.y - dense.model.mean_function(p, dense.X)
+        L = mll_ops.cholesky(sigma)
         alpha = mll_ops.chol_solve(L, yc)
-        Li = cuda_cholesky.tri_inv(L)
-        tril_inv = cuda_cholesky.syrk_ltl_tril_kernel(Li)
+        Li = cc.tri_inv_panels(L).contiguous()
+        tril_inv = cc.syrk_ltl_tril_kernel(Li)
+        Lt, dinvs = cc.blocked_cholesky_t(sigma, return_diag_inv=True)
+        L_b = Lt.mT
 
         def d_sigma():
             out = 0.5 * torch.outer(alpha, alpha) - tril_inv
             out.diagonal().add_(0.5 * torch.diagonal(tril_inv))
             return out
 
+        def lt_solve():
+            z = torch.linalg.solve_triangular(Lt.mT, yc[:, None], upper=False)
+            return torch.linalg.solve_triangular(Lt, z, upper=True)
+
         dsig = d_sigma()
-    stages = {
+    shared = {
         "gram K2": lambda: cuda_gram.gram_sym_kernel(dense.X, dd, ss, ll, "xx"),
         "add_diagonal": lambda: mll_ops.add_diagonal(K, c),
-        "cholesky": lambda: mll_ops.cholesky(sigma),
-        "chol_solve": lambda: mll_ops.chol_solve(L, yc),
-        "tri_inv": lambda: cuda_cholesky.tri_inv(L),
-        "syrk K3": lambda: cuda_cholesky.syrk_ltl_tril_kernel(Li),
+    }
+    tail = {
+        "syrk K3": lambda: cc.syrk_ltl_tril_kernel(Li),
         "d_sigma": d_sigma,
         "gram backward (plain VJP)": lambda: cuda_gram.plain_vjp(
             lambda x, d, s, l: gram_ops.cross_covariance_kind(x, x, d, s, l, "xx"),
             (dense.X, dd, ss, ll), (False, True, True, True), dsig),
     }
-    stage_ms = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
-    del K, sigma, L, Li, tril_inv, dsig
-    print(f"[dense] stage ms {json.dumps(stage_ms)}; sum {sum(stage_ms.values()):.3f} "
-          f"vs step median {steady_ms:.3f}")
+    stage_tables = {
+        "xla": {**shared,
+                "cholesky (cuSOLVER)": lambda: mll_ops.cholesky(sigma),
+                "chol_solve": lambda: mll_ops.chol_solve(L, yc),
+                "tri_inv_panels": lambda: cc.tri_inv_panels(L).contiguous(),
+                **tail},
+        "blocked": {**shared,
+                    "blocked_cholesky_t (K4 x80)": lambda: cc.blocked_cholesky_t(
+                        sigma, return_diag_inv=True),
+                    "solve against Lt": lt_solve,
+                    "tri_inv_from_diag": lambda: cc.tri_inv_from_diag(L_b, dinvs).contiguous(),
+                    **tail},
+    }
+    stage_ms = {}
+    for impl, stages in stage_tables.items():
+        stage_ms[impl] = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
+        steady = steady_xla if impl == "xla" else steady_blocked
+        print(f"[dense {impl}] stage ms {json.dumps(stage_ms[impl])}; "
+              f"sum {sum(stage_ms[impl].values()):.3f} vs step median {steady:.3f}")
+    del K, sigma, L, Li, tril_inv, dsig, Lt, dinvs, L_b
+    faster = "blocked" if steady_blocked < steady_xla else "xla"
+    print(f"[auto] dense10k step median: xla {steady_xla:.3f} ms ({peak_xla:.3f} GiB), "
+          f"blocked {steady_blocked:.3f} ms ({peak_blocked:.3f} GiB); faster: {faster}; "
+          f"'auto' resolves to {mll_ops.resolve_chol_impl(G * T, f32, dev)!r} on the card")
 
     # -- phase 5: summary lines -------------------------------------------
+    for k, v in main_counts.items():
+        require(v > 0, f"kernel {k} was not launched on the main paths")
+    print(f"[main path] launches {main_counts}")
     sources = {
         "K1": ("gram_rect", "dis_project_tpu_torch/csrc/simm_gram.cu",
                "dis_project_tpu/ops/pallas_gram.py:82"),
@@ -385,6 +574,10 @@ def main():
                "dis_project_tpu/ops/pallas_gram.py:298"),
         "K3": ("syrk_ltl_tril", "dis_project_tpu_torch/csrc/syrk.cu",
                "dis_project_tpu/ops/pallas_cholesky.py:886"),
+        "K4": ("chol_inv_unblocked", "dis_project_tpu_torch/csrc/chol_block.cu",
+               "dis_project_tpu/ops/pallas_cholesky.py:258"),
+        "K5": ("chol_unblocked", "dis_project_tpu_torch/csrc/chol_block.cu",
+               "dis_project_tpu/ops/pallas_cholesky.py:143"),
     }
     kernels = []
     for key, (name, source, replaces) in sources.items():
@@ -395,7 +588,8 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
         })
-    print(f"[dense] step_ms_median {steady_ms!r} peak_memory_gib {peak_gib!r}")
+    print(f"[dense] step_ms_median xla {steady_xla!r} blocked {steady_blocked!r} "
+          f"peak_memory_gib xla {peak_xla!r} blocked {peak_blocked!r}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

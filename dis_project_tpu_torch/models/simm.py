@@ -7,12 +7,16 @@ static configuration, and every method is a pure function of
 
 Kernel dispatch: with ``kernels=True`` (the default), ``gram`` goes through
 ``ops.cuda_gram.gram_sym`` (K2 on a CUDA tensor), ``cross_covariance``
-through ``ops.cuda_gram.cross_covariance`` (K1), and the float32 MLL
-backward above N = 2048 through the SYRK kernel K3. There are no size
-thresholds on the card: the JAX package's ``PALLAS_GRAM_MIN_N``/``MAX_N``
-were measured on a TPU. ``kernels=False`` takes the plain PyTorch closed
-forms on any device — the reference the kernels are held against on the
-card.
+through ``ops.cuda_gram.cross_covariance`` (K1), the float32 MLL backward
+above N = 2048 through the SYRK kernel K3, and the ``'blocked'`` engine's
+float32 diagonal steps through K4. There are no size thresholds on the
+card for the Grams: the JAX package's ``PALLAS_GRAM_MIN_N``/``MAX_N`` were
+measured on a TPU. ``kernels=False`` takes the plain PyTorch versions on
+any device — the reference the kernels are held against on the card.
+
+``chol_impl``: ``'auto' | 'xla' | 'blocked'``, the O(N³) engine of the
+MLL (``ops.mll``). ``'auto'`` resolves through
+``ops.mll.resolve_chol_impl``, which is ``'xla'`` in the port.
 
 Behavioral parity notes (each deliberate, from the reference):
 
@@ -100,6 +104,12 @@ class ExactSIMM:
     canonical_rows: bool = False
     shared_kinetics: bool = False
     kernels: bool = True
+    chol_impl: str = "auto"
+
+    def _resolve_chol(self, n: int, dtype, device) -> str:
+        if self.chol_impl != "auto":
+            return self.chol_impl
+        return mll_ops.resolve_chol_impl(n, dtype, device)
 
     def _kind(self, default: str) -> str:
         return default if self.canonical_rows else "mixed"
@@ -165,7 +175,8 @@ class ExactSIMM:
         mx = self.mean_function(params, x)
         K = self.gram(params, x, self._kind("xx"))
         sigma = mll_ops.add_diagonal(K, self.jitter + params.obs_stddev**2)
-        return mll_ops.mvn_logpdf(y, mx, sigma, kernels=self.kernels)
+        impl = self._resolve_chol(x.shape[0], x.dtype, x.device)
+        return mll_ops.mvn_logpdf(y, mx, sigma, impl=impl, kernels=self.kernels)
 
     def mll_replicated(
         self,
@@ -199,7 +210,9 @@ class ExactSIMM:
         ybar = torch.mean(Y, dim=0)
         sigma1 = mll_ops.add_diagonal(R * B, c)
         w = torch.sqrt(torch.tensor(float(R), dtype=y.dtype, device=y.device)) * (ybar - mu)
-        logp_dense = mll_ops.mvn_logpdf(w, torch.zeros_like(w), sigma1, kernels=self.kernels)
+        impl = self._resolve_chol(n_block, y.dtype, y.device)
+        logp_dense = mll_ops.mvn_logpdf(w, torch.zeros_like(w), sigma1, impl=impl,
+                                        kernels=self.kernels)
 
         resid = Y - mu[None, :]
         ss_total = torch.sum(resid * resid)

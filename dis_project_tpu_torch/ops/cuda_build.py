@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` compiles into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes), for
 ``sm_90a``. Libraries go to ``build/kernels/`` beside the package, named by
-a hash of the source and the flags, so an edited source never loads a
-stale library. Builds happen at first use; :func:`build` starts several
-``nvcc`` processes at once.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source never loads a stale library. Builds happen at first use;
+:func:`build` starts several ``nvcc`` processes at once.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -43,6 +43,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -269,3 +269,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
         cuda_gram.gram_sym_kernel(x, d, d, torch.tensor(1.0), "xx")
     with pytest.raises(ValueError, match="CUDA"):
         cuda_cholesky.syrk_ltl_tril_kernel(torch.eye(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_cholesky.chol_inv_unblocked_kernel(torch.eye(128))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_cholesky.chol_unblocked_kernel(torch.eye(96))
