@@ -14,7 +14,12 @@ JAX package. Phases (each raises on failure):
    CUDA events (median of repeats). K3, K4 and K5 take inputs made from the
    real dense10k Σ at the init parameters; K4 and K5 are held to an f64
    factor computed on the card: their error may be at most twice the plain
-   float32 version's.
+   float32 version's. K6 and K7 factor that whole Σ (N = 1e4): each within
+   twice cuSOLVER's distance from the f64 factor of its plain version, its
+   reconstruction at most twice cuSOLVER's at the default block, an exactly
+   zero upper triangle, two calls bitwise equal, a non-PD Σ giving NaN
+   without hanging, the error word 0 after every call; a time for each
+   block in {128, 256, 512}.
 3. The main paths, each driven with every launch count set to 0 just
    before it and read just after; each path's kernels must have launched:
    - the canonical route (``main.run``, p53, float64) and the golden
@@ -24,6 +29,8 @@ JAX package. Phases (each raises on failure):
      ``diag='pallas_inv'`` (K4), each reconstructing Σ no worse than twice
      cuSOLVER's factor, and ``inv_from_factor_tril`` from the factor's
      diagonal inverses (K3) against its plain version;
+   - the fused factorisations ``fused_cholesky`` (K6) and
+     ``fused_cholesky2`` (K7) at N = 1e4 on the real Σ;
    - the dense10k route (``main.run_dense``, 50 x 200 = 1e4, float32,
      10 Adam steps), whose ``'auto'`` engine is ``'xla'``: per-step ms,
      peak memory;
@@ -113,6 +120,7 @@ def main():
     from dis_project_tpu_torch.models import simm
     from dis_project_tpu_torch.ops import cuda_build, cuda_gram
     from dis_project_tpu_torch.ops import cuda_cholesky as cc
+    from dis_project_tpu_torch.ops import cuda_cholesky_fused as cf
     from dis_project_tpu_torch.ops import gram as gram_ops
     from dis_project_tpu_torch.ops import mll as mll_ops
     from dis_project_tpu_torch.ops.precision import default_device
@@ -124,7 +132,7 @@ def main():
     f32, f64 = torch.float32, torch.float64
 
     # -- phase 1: build ----------------------------------------------------
-    build_s = cuda_build.build(["simm_gram", "syrk", "chol_block"])
+    build_s = cuda_build.build(["simm_gram", "syrk", "chol_block", "chol_fused"])
     smi = nvidia_smi_line()
     print(f"[build] kernels built in {build_s:.1f}s")
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -310,12 +318,100 @@ def main():
     for key, B, timed in (("K4", 128, True), ("K4", 512, False),
                           ("K5", 96, False), ("K5", 512, True)):
         check_block_kernel(key, B, timed)
+
+    # K6 / K7 on the whole real Sigma (N = 1e4). Reconstruction
+    # max|LL^T - Sigma| / max|Sigma| at most twice cuSOLVER's at the default
+    # block (the blocked engine's rule); kernel vs plain version within twice
+    # cuSOLVER's distance from the f64 factor: both are f32 factors of the
+    # same tile algorithm that differ only in the order of their sums, so a
+    # wrong tile or a race shows as an O(1) difference, roundoff as one at
+    # cuSOLVER's level.
+    sigma_max = float(sigma.abs().max())
+
+    def recon(L):
+        L64 = L.double()
+        return float((L64 @ L64.T - sigma.double()).abs().max()) / sigma_max
+
+    rec_cusolver = recon(L_cusolver)
+    n = sigma.shape[0]
+    L_f64 = torch.linalg.cholesky(sigma.double())
+    e_cusolver = float((L_cusolver.double() - L_f64).abs().max())
+    library_ms = cuda_ms(lambda: torch.linalg.cholesky(sigma), reps=5, warmup=1)
+    # N^3/3 FP32 operations; each input byte read once, the factor written once.
+    b, by = bound_ms(2 * n * n * 4, n**3 / 3)
+    for key, fn, kernel, what, quantum, default in (
+        ("K6", cf.fused_cholesky, cf.fused_cholesky_kernel, "fused_cholesky", cf._CHUNK,
+         cf.DEFAULT_BLOCK),
+        ("K7", cf.fused_cholesky2, cf.fused_cholesky2_kernel, "fused_cholesky2", cf._CHUNK2,
+         cf.DEFAULT_BLOCK2),
+    ):
+        L = fn(sigma)
+        require(cf.error_word(what) == 0, f"{key}: error word set")
+        require(bool(torch.isfinite(L).all()), f"{key}: factor not finite")
+        require(bool(torch.all(torch.triu(L, 1) == 0)), f"{key} wrote above the diagonal")
+        plain = cf.fused_cholesky_plain(sigma, default)
+        torch.cuda.synchronize()
+        vs_plain = float((L - plain).abs().max())
+        e_ker = float((L.double() - L_f64).abs().max())
+        e_plain = float((plain.double() - L_f64).abs().max())
+        r_ker, r_plain = recon(L), recon(plain)
+        print(f"[{key}] {what} N={n} B={default} (real Sigma): vs f64 L {e_ker:.3e}, plain "
+              f"{e_plain:.3e}, cuSOLVER {e_cusolver:.3e}; kernel vs plain {vs_plain:.3e} "
+              f"(limit 2x cuSOLVER's: {2 * e_cusolver:.3e}); max|LL^T - Sigma|/max|Sigma| "
+              f"{r_ker:.3e} (plain {r_plain:.3e}, cuSOLVER {rec_cusolver:.3e}, limit 2x)")
+        require(vs_plain <= 2 * e_cusolver, f"{key} vs plain: {vs_plain} > 2 x {e_cusolver}")
+        require(r_ker <= 2 * rec_cusolver, f"{key}: reconstruction {r_ker} > 2 x {rec_cusolver}")
+        repeat = fn(sigma)
+        same = bool(torch.equal(repeat, L))
+        print(f"[{key}] two calls bitwise equal: {same}; error word {cf.error_word(what)}")
+        require(same and cf.error_word(what) == 0, f"{key}: repeat differs or error word set")
+        del repeat
+        bad = sigma.clone()
+        bad[n // 2, n // 2] = -1.0
+        t0 = time.perf_counter()
+        L_bad = fn(bad)
+        torch.cuda.synchronize()
+        t_bad = time.perf_counter() - t0
+        nan = bool(torch.isnan(L_bad).any())
+        print(f"[{key}] non-PD Sigma: NaN factor {nan} in {t_bad:.3f} s; "
+              f"error word {cf.error_word(what)}")
+        require(nan and cf.error_word(what) == 0, f"{key}: non-PD input not NaN or error word set")
+        del bad, L_bad
+        # Each block's time (kernel alone on the padded input) and reconstruction;
+        # the default is the fastest block that holds 2x cuSOLVER's.
+        block_ms = {}
+        for B in (128, 256, 512):
+            npad = -(-n // (B * quantum)) * (B * quantum)
+            A_pad = cc._pad_identity(sigma, npad)
+            L_b = kernel(A_pad, B)[:n, :n]
+            r_b = recon(L_b)
+            block_ms[B] = cuda_ms(lambda: kernel(A_pad, B), reps=5, warmup=1)
+            print(f"[{key}] block {B}: ms {block_ms[B]:.4f}, max|LL^T - Sigma|/max|Sigma| "
+                  f"{r_b:.3e} ({r_b / rec_cusolver:.2f}x cuSOLVER's), error word "
+                  f"{cf.error_word(what)}")
+            require(cf.error_word(what) == 0, f"{key} block {B}: error word set")
+            if r_b > 2 * rec_cusolver:
+                block_ms[B] = math.inf
+            if B == default:
+                A_def = A_pad
+            del A_pad, L_b
+        best = min(block_ms, key=block_ms.get)
+        print(f"[{key}] fastest block holding 2x cuSOLVER's: {best} (module default {default})")
+        records[key] = dict(
+            max_abs_err=vs_plain, ms=block_ms[default],
+            plain_ms=cuda_ms(lambda: cf.fused_cholesky_plain(A_def, default), reps=5, warmup=1),
+            bound_ms=b, bound_by=by, library_ms=library_ms,
+            shape=f"{n}x{n} f32 (padded to {A_def.shape[0]}), B={default}",
+        )
+        del L, plain, A_def
+    del L_f64
+
     for name, r in records.items():
         print(f"[{name}] {r['shape']}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) library_ms {r['library_ms']}")
 
     # -- phase 3: the main paths, counts from 0 before each ------------------
-    counters = (cuda_gram.LAUNCHES, cc.LAUNCHES)
+    counters = (cuda_gram.LAUNCHES, cc.LAUNCHES, cf.LAUNCHES)
     main_counts = {k: 0 for c in counters for k in c}
 
     def drive(what, fn, must_launch):
@@ -371,14 +467,6 @@ def main():
 
     # The blocked engine at N = 1e4 on the real Sigma: each factor finite
     # and reconstructing Sigma no worse than twice cuSOLVER's factor.
-    sigma_max = float(sigma.abs().max())
-
-    def recon(L):
-        L64 = L.double()
-        return float((L64 @ L64.T - sigma.double()).abs().max()) / sigma_max
-
-    rec_cusolver = recon(L_cusolver)
-
     Lt, dinvs = drive("blocked_cholesky_t N=1e4",
                       lambda: cc.blocked_cholesky_t(sigma, return_diag_inv=True),
                       ("chol_inv_unblocked",))
@@ -392,11 +480,19 @@ def main():
                  ("chol_inv_unblocked",))
     tril_inv = drive("inv_from_factor_tril N=1e4",
                      lambda: cc.inv_from_factor_tril(L_t, diag_inv=dinvs), ("syrk_ltl_tril",))
-    for what, L in (("blocked_cholesky_t (K4)", L_t), ("blocked_cholesky pallas (K5)", L_k5),
-                    ("blocked_cholesky pallas_inv (K4)", L_k4)):
+    L_k6 = drive("fused_cholesky N=1e4", lambda: cf.fused_cholesky(sigma), ("fused_cholesky",))
+    L_k7 = drive("fused_cholesky2 N=1e4", lambda: cf.fused_cholesky2(sigma),
+                 ("fused_cholesky2",))
+    for what in ("fused_cholesky", "fused_cholesky2"):
+        require(cf.error_word(what) == 0, f"{what} N=1e4: error word set")
+    for tag, what, L in (("blocked engine", "blocked_cholesky_t (K4)", L_t),
+                         ("blocked engine", "blocked_cholesky pallas (K5)", L_k5),
+                         ("blocked engine", "blocked_cholesky pallas_inv (K4)", L_k4),
+                         ("fused", "fused_cholesky (K6)", L_k6),
+                         ("fused", "fused_cholesky2 (K7)", L_k7)):
         require(bool(torch.isfinite(L).all()), f"{what}: factor not finite")
         r = recon(L)
-        print(f"[blocked engine] {what}: max|LL^T - Sigma|/max|Sigma| {r:.3e} "
+        print(f"[{tag}] {what}: max|LL^T - Sigma|/max|Sigma| {r:.3e} "
               f"(cuSOLVER {rec_cusolver:.3e}, limit 2x)")
         require(r <= 2 * rec_cusolver, f"{what}: reconstruction {r} > 2 x {rec_cusolver}")
     # The same left-looking algorithm with cuSOLVER diagonal steps, for
@@ -404,7 +500,7 @@ def main():
     # TRSM is a product with the diagonal inverse), not the kernels'.
     print(f"[blocked engine] blocked_cholesky xla diag (no kernel): "
           f"{recon(cc.blocked_cholesky(sigma, block=512, diag='xla')):.3e}")
-    del L_k5, L_k4
+    del L_k5, L_k4, L_k6, L_k7
     plain_tril = cc.inv_from_factor_tril(L_t, diag_inv=dinvs, kernels=False)
     rel = float((tril_inv - plain_tril).abs().max()) / float(plain_tril.abs().max())
     print(f"[blocked engine] inv_from_factor_tril(diag_inv) K3 vs plain: rel to max {rel:.3e} "
@@ -578,6 +674,10 @@ def main():
                "dis_project_tpu/ops/pallas_cholesky.py:258"),
         "K5": ("chol_unblocked", "dis_project_tpu_torch/csrc/chol_block.cu",
                "dis_project_tpu/ops/pallas_cholesky.py:143"),
+        "K6": ("fused_cholesky", "dis_project_tpu_torch/csrc/chol_fused.cu",
+               "dis_project_tpu/ops/pallas_cholesky_fused.py:108"),
+        "K7": ("fused_cholesky2", "dis_project_tpu_torch/csrc/chol_fused.cu",
+               "dis_project_tpu/ops/pallas_cholesky_fused.py:333"),
     }
     kernels = []
     for key, (name, source, replaces) in sources.items():
