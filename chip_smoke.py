@@ -14,12 +14,16 @@ JAX package. Phases (each raises on failure):
    CUDA events (median of repeats). K3, K4 and K5 take inputs made from the
    real dense10k Σ at the init parameters; K4 and K5 are held to an f64
    factor computed on the card: their error may be at most twice the plain
-   float32 version's. K6 and K7 factor that whole Σ (N = 1e4): each within
-   twice cuSOLVER's distance from the f64 factor of its plain version, its
-   reconstruction at most twice cuSOLVER's at the default block, an exactly
-   zero upper triangle, two calls bitwise equal, a non-PD Σ giving NaN
-   without hanging, the error word 0 after every call; a time for each
-   block in {128, 256, 512}.
+   float32 version's; K5 (a thread-block cluster) at B in {32, 96, 100,
+   128, 256, 512}, with its cluster size, timed at every cluster size whose
+   shared memory fits, and a block with a negative pivot giving NaN
+   without hanging. K6 and K7 factor that whole Σ (N = 1e4):
+   each within twice cuSOLVER's distance from the f64 factor of its plain
+   version, its reconstruction at most twice cuSOLVER's at the default
+   block, an exactly zero upper triangle, two calls bitwise equal, a non-PD
+   Σ giving NaN without hanging, the error word 0 after every call; a time
+   for each block in {128, 256, 512}; the diagonal chain's timeline from
+   the kernels' own %globaltimer stamps, and each kernel's CTAs per SM.
 3. The main paths, each driven with every launch count set to 0 just
    before it and read just after; each path's kernels must have launched:
    - the canonical route (``main.run``, p53, float64) and the golden
@@ -278,18 +282,22 @@ def main():
         A = sigma[off:off + B, off:off + B].contiguous()
         if key == "K4":
             kout, pout = cc.chol_inv_unblocked_kernel(A), cc.chol_inv_unblocked_plain(A)
+            how = ""
         else:
             kout, pout = (cc.chol_unblocked_kernel(A), None), (cc.cholesky_nan(A), None)
+            how = f", a cluster of {cc.k5_cluster_size(B)} CTAs"
         torch.cuda.synchronize()
         ek, pk = block_errors(*kout, A), block_errors(*pout, A)
         vs_plain = max(float((k - p).abs().max()) for k, p in zip(kout, pout) if k is not None)
-        print(f"[{key}] B={B} (real Sigma block at {off}): kernel vs f64 L {ek[0]:.3e}, "
+        print(f"[{key}] B={B} (real Sigma block at {off}{how}): kernel vs f64 L {ek[0]:.3e}, "
               f"LiL-I {ek[1]}; plain f32 vs f64 L {pk[0]:.3e}, LiL-I {pk[1]}; "
               f"kernel vs plain {vs_plain:.3e} (limit: 2x the plain error)")
         for e, p, what in zip(ek, pk, ("L", "LiL-I")):
             if e is not None:
                 require(math.isfinite(e) and e <= 2 * p, f"{key} B={B} {what}: {e} > 2 x {p}")
         require(bool(torch.all(torch.triu(kout[0], 1) == 0)), f"{key} wrote above the diagonal")
+        if not timed:
+            return
         if key == "K4":
             fn, plain = cc.chol_inv_unblocked_kernel, cc.chol_inv_unblocked_plain
             b, by = bound_ms(3 * B * B * 4, 2 * B**3 / 3)
@@ -310,14 +318,48 @@ def main():
         print(f"[{key}] B={B}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
               f"bound_ms {b:.5f} ({by}) library_ms {rec['library_ms']} "
               f"cholesky+solve pair ms {rec.get('pair_ms')}")
-        if timed:
+        if timed == "main":
             records[key] = rec
 
     # The shapes of the main path: K4 at B=128 (blocked_cholesky_t's
-    # diagonal step), K5 at B=512 (blocked_cholesky's); the others shown.
-    for key, B, timed in (("K4", 128, True), ("K4", 512, False),
-                          ("K5", 96, False), ("K5", 512, True)):
+    # diagonal step), K5 at B=512 (blocked_cholesky's); the others checked
+    # (K4 at 512 and K5 at 96 also timed).
+    for key, B, timed in (("K4", 128, "main"), ("K4", 512, "shown"), ("K5", 32, None),
+                          ("K5", 96, "shown"), ("K5", 100, None), ("K5", 128, None),
+                          ("K5", 256, None), ("K5", 512, "main")):
         check_block_kernel(key, B, timed)
+    # K5's cluster-size rule (one CTA per 32-row block, at most 8) against the other
+    # sizes whose shared memory fits, through the C entry point (these
+    # launches are not counted).
+    lib = cuda_build.load("chol_block", cc.CHOL_SIGNATURES)
+    for B in (96, 128, 256, 512):
+        A = sigma[:B, :B].contiguous()
+        L = torch.empty_like(A)
+        times = {}
+        row_blocks = -(-B // 32)
+        for C in range(1, 9):
+            if -(-row_blocks // C) > 2 or C > row_blocks:
+                continue  # more than 64 rows a CTA does not fit; or CTAs without rows
+            times[C] = cuda_ms(lambda: cuda_build.check(lib.chol_block_f32(
+                A.data_ptr(), B, B, L.data_ptr(), C, cuda_build.stream_handle(dev)), "K5"),
+                reps=20)
+        print(f"[K5] B={B} ms by cluster size {times} (rule: {cc.k5_cluster_size(B)})")
+    # Shared-memory sizes that shrink and grow again between launches.
+    for B in (512, 32, 96, 512):
+        cc.chol_unblocked_kernel(sigma[:B, :B])
+    torch.cuda.synchronize()
+    # K5 on a block with a negative pivot: a NaN factor, and the launch ends
+    # (no control flow depends on the data, so no cluster barrier is missed).
+    bad = sigma[:512, :512].clone()
+    bad[300, 300] = -1.0
+    t0 = time.perf_counter()
+    L_bad = cc.chol_unblocked_kernel(bad)
+    torch.cuda.synchronize()
+    nan = bool(torch.isnan(L_bad[300:]).any()) and bool(torch.isfinite(L_bad[:288]).all())
+    print(f"[K5] B=512 with a negative pivot at row 300: NaN from there on, finite before: {nan} "
+          f"in {time.perf_counter() - t0:.3f} s")
+    require(nan, "K5: a negative pivot did not give NaN")
+    del bad, L_bad
 
     # K6 / K7 on the whole real Sigma (N = 1e4). Reconstruction
     # max|LL^T - Sigma| / max|Sigma| at most twice cuSOLVER's at the default
@@ -328,11 +370,27 @@ def main():
     # cuSOLVER's level.
     sigma_max = float(sigma.abs().max())
 
+    def chain_line(key, what, B, kernel_ms):
+        """The diagonal chain of the last launch (the last timed call), from
+        the kernel's stamps: ticket, start of the diagonal routine, flag."""
+        st = cf.chain_stamps(what).double().cpu() / 1e3  # microseconds
+        links = st[2, 1:] - st[2, :-1]
+        routine = st[2] - st[1]
+        corrections = st[1] - st[0]
+        share = float(routine.sum()) / 1e3 / kernel_ms
+        print(f"[{key} chain] B={B}: {st.shape[1]} links, mean {float(links.mean()):.1f} us, max "
+              f"{float(links.max()):.1f} us; diagonal routine mean {float(routine.mean()):.1f} us, "
+              f"sum {float(routine.sum()) / 1e3:.3f} ms = {100 * share:.1f} % of the kernel's "
+              f"{kernel_ms:.3f} ms; a diagonal tile's corrections mean "
+              f"{float(corrections.mean()):.1f} us")
+
     def recon(L):
         L64 = L.double()
         return float((L64 @ L64.T - sigma.double()).abs().max()) / sigma_max
 
     rec_cusolver = recon(L_cusolver)
+    print(f"[K6/K7] CTAs per SM: K6 {cf.occupancy('fused_cholesky')}, "
+          f"K7 {cf.occupancy('fused_cholesky2')}")
     n = sigma.shape[0]
     L_f64 = torch.linalg.cholesky(sigma.double())
     e_cusolver = float((L_cusolver.double() - L_f64).abs().max())
@@ -392,6 +450,7 @@ def main():
             require(cf.error_word(what) == 0, f"{key} block {B}: error word set")
             if r_b > 2 * rec_cusolver:
                 block_ms[B] = math.inf
+            chain_line(key, what, B, block_ms[B])
             if B == default:
                 A_def = A_pad
             del A_pad, L_b

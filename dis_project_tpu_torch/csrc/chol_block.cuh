@@ -1,13 +1,27 @@
-// Device routines for the factorisation of one SPD block by one thread
-// block (CTA), shared by the block Cholesky kernels (chol_block.cu) and
-// meant for the fused whole-matrix factorisations, which factor and invert
-// their diagonal tiles with the same code.
+// Device routines for the factorisation of one SPD block, shared by the
+// block Cholesky kernels (chol_block.cu) and the fused whole-matrix
+// factorisations (chol_fused.cu), which factor and invert their diagonal
+// tiles with the same code.
 //
-// Everything here is run by ALL threads of a CTA of chol_block::THREADS
-// threads, and every routine ends with a barrier, so its results (in shared
-// or global memory) are visible to the whole CTA when it returns. Global
-// buffers that a routine writes and a later one reads are plain (non-const,
-// non-restrict) pointers, so loads never take the read-only path.
+// The warp routines (warp_chol32, warp_inv32) are run by one whole warp and
+// touch only their 32 x 32 piece; trsm_row32 by one thread. Everything else
+// is run by ALL threads of a CTA of chol_block::THREADS threads, and ends
+// with a barrier, so its results (in shared or global memory) are visible
+// to the whole CTA when it returns. Global buffers that a routine writes and a later one
+// reads are plain (non-const, non-restrict) pointers, so loads never take
+// the read-only path.
+//
+// Two routines give L and L^{-1} of a diagonal block, B a multiple of 128
+// up to 512, left-looking over 128-wide steps:
+//   chol_inv_block (K4's, and K7's diagonal tiles): each 128 step by
+//     block_chol_shared + invert_lower_shared, ~512 CTA barriers and a
+//     handful of FMAs per thread between two of them; 0.27 ms at B = 128 on
+//     an H100 80GB HBM3 at 700 W (PERF.md), latency-bound.
+//   chol_inv_block_fast (K6's diagonal tiles): each 128 step by
+//     chol_inv_128_fast, 14 CTA barriers: the 32 x 32 pieces factored and
+//     inverted by one warp in registers (shuffles, no barrier), the inverse
+//     beside the panel's substitution and update by the other 7 warps. Still latency-bound (the pieces are
+//     a chain of 4 x 32 dependent pivots); PERF.md has its time.
 //
 // Arithmetic is plain FP32 (FMA) throughout: no TF32, no bf16. A single-pass
 // low-precision product NaN'd the factorisation of a real SIMM Gram on the
@@ -191,42 +205,287 @@ __device__ void zero_upper(float* M, int n) {
     for (int j = i + 1 + tx; j < n; j += 32) M[(size_t)i * n + j] = 0.f;
 }
 
-// L and L^{-1} of one B x B SPD block (B a multiple of SUB), the work of K4.
-// A: the block (lower triangle read, row stride lda). L, Li: B x B
-// row-major outputs, zeros above the diagonal. W: B x B workspace for the
-// trailing matrix (unused when B == SUB). smem: CHOL_INV_SMEM_FLOATS floats.
-//
-// Left-looking over SUB-wide panels, as the TPU kernel: the SUB x SUB
-// diagonal block is factored (block_chol_shared) and inverted in shared
-// memory, the panel below
-// it is the product with that inverse (the TRSM as a product), the trailing
-// matrix takes the panel's rank-SUB update, and the inverse is assembled
-// block-wise: Li[p, :off] = -dinv (L[p, :off] Li[:off, :off]), the inner
-// product staged in W's finished columns.
+// ---------------------------------------------------------------------------
+// One warp, 32 x 32, in registers (no CTA barrier). Lane i holds row i.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// In-place lower Cholesky of the 32 x 32 block at P (leading dimension
+// ld), by one whole warp, lane i holding row i in registers: the order and
+// arithmetic of panel_chol_shared (column k scaled by its pivot's square
+// root, then the rank-1 update l_i l_j, one FMA), the column broadcast by
+// shuffles. Only entries on and below the diagonal are read or written; a
+// non-positive pivot gives NaN. Every lane runs every update, also on the
+// registers above its diagonal, which come out as junk and are never
+// stored: a lane-dependent condition on each update compiles into a
+// divergent branch per update (BSSY/BSYNC pairs in the SASS), which
+// serialises the warp.
+__device__ void warp_chol32(float* P, int ld) {
+  const int lane = threadIdx.x & 31;
+  float a[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) a[j] = j <= lane ? P[lane * ld + j] : 0.f;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const float piv = __shfl_sync(FULL_MASK, a[k], k);
+    const float d = piv > 0.f ? sqrtf(piv) : quiet_nan();
+    const float q = a[k] / d;
+    a[k] = lane == k ? d : q;
+    float lj[32];
+#pragma unroll
+    for (int j = k + 1; j < 32; ++j) lj[j] = __shfl_sync(FULL_MASK, a[k], j);
+#pragma unroll
+    for (int j = k + 1; j < 32; ++j) a[j] = fmaf(-a[k], lj[j], a[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    if (j <= lane) P[lane * ld + j] = a[j];
+}
+
+// The inverse X = L^{-1} of the lower-triangular 32 x 32 factor at P
+// (leading dimension ld), from the factor in registers, by substitution in
+// the order of invert_lower_shared: row k of X is scaled by 1 / L[k][k],
+// then every row i > k subtracts L[i][k] X[k][:] (one FMA; the rows i <= k
+// take a zero multiplier, which leaves them exact). X's strictly lower part
+// goes TRANSPOSED into P's strictly upper part (X[i][c] at P[c * ld + i]),
+// its diagonal to xd[0..31]. Called by one whole warp; reads only P's lower
+// triangle, writes only its strict upper one.
+__device__ void warp_inv32(float* P, int ld, float* xd) {
+  const int lane = threadIdx.x & 31;
+  float a[32], x[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    a[j] = j <= lane ? P[lane * ld + j] : 0.f;
+    x[j] = j == lane ? 1.f : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const float rk = 1.f / __shfl_sync(FULL_MASK, a[k], k);
+    float xk[32];
+#pragma unroll
+    for (int c = 0; c <= k; ++c) {
+      x[c] = lane == k ? x[c] * rk : x[c];
+      xk[c] = __shfl_sync(FULL_MASK, x[c], k);
+    }
+    const float m = lane > k ? a[k] : 0.f;
+#pragma unroll
+    for (int c = 0; c <= k; ++c) x[c] = fmaf(-m, xk[c], x[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    if (c < lane) P[c * ld + lane] = x[c];
+    if (c == lane) xd[lane] = x[c];
+  }
+}
+
+// x L^T = row for the 32 entries of one row (in place), by substitution
+// against the 32 x 32 lower factor at D (leading dimension ldd). The row,
+// and each row of D, are loaded before the FMA chain that uses them.
+__device__ __forceinline__ void trsm_row32(float* row, const float* D, int ldd) {
+  float x[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) x[j] = row[j];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    float dj[32];
+#pragma unroll
+    for (int t = 0; t <= j; ++t) dj[t] = D[j * ldd + t];
+    float s = x[j];
+#pragma unroll
+    for (int t = 0; t < j; ++t) s = fmaf(-x[t], dj[t], s);
+    x[j] = s / dj[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) row[j] = x[j];
+}
+
+// A barrier of warps 1..WARPS-1 only (named barrier 1), while warp 0 works
+// on its own.
+__device__ __forceinline__ void sync_rest() {
+  asm volatile("bar.sync 1, %0;" ::"n"(THREADS - 32) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// L and L^{-1} of one B x B SPD block (B a multiple of SUB).
+// ---------------------------------------------------------------------------
+
 constexpr int SUB = 128;
 constexpr int SLD = SUB + 1;
 constexpr int CHOL_INV_SMEM_FLOATS = 2 * SUB * SLD + GEMM_SMEM_FLOATS;
 
-__device__ void chol_inv_block(const float* A, int lda, int B, float* L, float* Li, float* W,
-                               float* smem) {
+// The 128 step of chol_inv_block_fast, in shared memory. F (SUB x SLD)
+// holds the block's lower triangle; on return it holds L on and below the
+// diagonal and L^{-1} TRANSPOSED strictly above it (X[i][j], j < i, at
+// F[j * SLD + i]), and xd the diagonal of L^{-1}. Right-looking over
+// 32-wide panels: the 32 x 32 diagonal piece factored by warp 0 in
+// registers (warp_chol32); then, at once, warp 0 inverts it (warp_inv32)
+// while warps 1..7 solve the panel below it by substitution and apply the
+// rank-32 trailing update (register-summed, 4 x 4 per thread); then the
+// inverse assembled block-wise,
+//   X[p, :p] = -X[p, p] (L[p, :p] X[:p, :p]),   p = 1..3 (32-blocks),
+// the inner product staged in T (32 x FAST_TLD). 14 CTA barriers and 3
+// barriers of warps 1..7 in all, against ~512 in block_chol_shared +
+// invert_lower_shared.
+constexpr int FAST_TLD = 3 * 32 + 1;
+static_assert(WARPS * 4 == 32, "the inverse assembly gives each warp 4 rows of a 32-row block");
+constexpr int FAST_T_FLOATS = 32 * FAST_TLD;
+
+__device__ void chol_inv_128_fast(float* F, float* xd, float* T) {
+  const int tid = threadIdx.x;
+  for (int off = 0; off < SUB; off += 32) {
+    if (tid < 32) warp_chol32(F + off * SLD + off, SLD);
+    __syncthreads();
+    if (tid < 32) {  // warp 0: the piece's inverse, off the critical path
+      warp_inv32(F + off * SLD + off, SLD, xd + off);
+    } else if (off + 32 < SUB) {
+      // Warps 1..7: the panel below the piece by substitution (one row per
+      // thread), then the trailing update of the lower triangle of rows and
+      // columns [off+32, SUB), 4 x 4 per thread, register-summed.
+      const int t0 = off + 32, m = SUB - t0, rt = tid - 32;
+      if (rt < m) trsm_row32(F + (t0 + rt) * SLD + off, F + off * SLD + off, SLD);
+      sync_rest();
+      const int mt = m / 4, ntiles = mt * (mt + 1) / 2;
+      for (int s = rt; s < ntiles; s += THREADS - 32) {
+        int ti = (int)((sqrtf(8.f * s + 1.f) - 1.f) * 0.5f);
+        while (ti * (ti + 1) / 2 > s) --ti;
+        while ((ti + 1) * (ti + 2) / 2 <= s) ++ti;
+        const int tk = s - ti * (ti + 1) / 2;
+        const int i0 = t0 + 4 * ti, k0 = t0 + 4 * tk;
+        float acc[4][4] = {};
+#pragma unroll 8
+        for (int t = off; t < t0; ++t) {
+          float av[4], bv[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) av[r] = F[(i0 + r) * SLD + t], bv[r] = F[(k0 + r) * SLD + t];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (k0 + c <= i0 + r) F[(i0 + r) * SLD + k0 + c] -= acc[r][c];
+      }
+    }
+    __syncthreads();
+  }
+  // The block-wise inverse, register-tiled: warp w takes rows 4w..4w+3 of
+  // the block row, lane l the columns l, l + 32, l + 64 (up to off). Loop
+  // bounds are the same for every lane, and the structural zeros are
+  // selected in (a per-lane trip count diverges); each entry is one FMA
+  // chain in ascending order, its first terms exact zeros.
+  const int r0 = (tid >> 5) * 4, c0 = tid & 31;
+  for (int off = 32; off < SUB; off += 32) {
+    // T[r][c] = sum_{c <= t < off} L[off + r][t] X[t][c]
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (32 * j >= off) break;
+      const int c = c0 + 32 * j;
+      const float xcc = xd[c];
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int t = 32 * j; t < off; ++t) {
+        const float xv = F[c * SLD + t];  // X[t][c] for t > c
+        const float x = t > c ? xv : (t == c ? xcc : 0.f);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] = fmaf(F[(off + r0 + q) * SLD + t], x, acc[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) T[(r0 + q) * FAST_TLD + c] = acc[q];
+    }
+    __syncthreads();
+    // X[off + r][c] = -sum_{u <= r} X[off + r][off + u] T[u][c]
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (32 * j >= off) break;
+      const int c = c0 + 32 * j;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int u = 0; u < r0 + 4; ++u) {
+        const float tv = T[u * FAST_TLD + c];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = r0 + q;
+          const float xv = F[(off + u) * SLD + off + r];  // X[off + r][off + u] for u < r
+          const float x = u < r ? xv : (u == r ? xd[off + r] : 0.f);
+          acc[q] = fmaf(x, tv, acc[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) F[c * SLD + off + r0 + q] = -acc[q];
+    }
+    __syncthreads();
+  }
+}
+
+// Shared memory of chol_inv_block_fast: F, xd, and T (which the 128 steps
+// and the cta_gemm staging share).
+constexpr int CHOL_INV_FAST_SMEM_FLOATS =
+    SUB * SLD + SUB + (FAST_T_FLOATS > GEMM_SMEM_FLOATS ? FAST_T_FLOATS : GEMM_SMEM_FLOATS);
+
+// L and L^{-1} of one B x B SPD block (B a multiple of SUB). A: the block
+// (lower triangle read, row stride lda). L, Li: B x B row-major outputs,
+// zeros above the diagonal. W: B x B workspace for the trailing matrix
+// (unused when B == SUB). smem: CHOL_INV_SMEM_FLOATS floats (FAST:
+// CHOL_INV_FAST_SMEM_FLOATS).
+//
+// Left-looking over SUB-wide panels, as the TPU kernel: the SUB x SUB
+// diagonal block is factored and inverted in shared memory, the panel below
+// it is the product with that inverse (the TRSM as a product), the trailing
+// matrix takes the panel's rank-SUB update, and the inverse is assembled
+// block-wise: Li[p, :off] = -dinv (L[p, :off] Li[:off, :off]), the inner
+// product staged in W's finished columns. The 128 step: block_chol_shared
+// and invert_lower_shared (chol_inv_block, K4's routine, ~512 barriers), or
+// chol_inv_128_fast (chol_inv_block_fast, K6's routine, 14 barriers).
+template <bool FAST>
+__device__ void chol_inv_block_impl(const float* A, int lda, int B, float* L, float* Li, float* W,
+                                    float* smem) {
   float* D = smem;                // factor of the diagonal block
-  float* X = smem + SUB * SLD;    // its inverse
-  float* G = smem + 2 * SUB * SLD;
+  float* X = smem + SUB * SLD;    // its inverse (FAST: its diagonal, then T)
+  float* G = FAST ? X + SUB : smem + 2 * SUB * SLD;
   zero_upper(L, B);
   zero_upper(Li, B);
   for (int off = 0; off < B; off += SUB) {
     const float* src = off == 0 ? A : W;
     const int lds = off == 0 ? lda : B;
-    for (int i = threadIdx.x >> 5; i < SUB; i += WARPS)
-      for (int j = threadIdx.x & 31; j <= i; j += 32)
-        D[i * SLD + j] = src[(size_t)(off + i) * lds + off + j];
+    if (FAST) {
+      // All 64 loads of a thread before their stores: src and D are plain
+      // pointers, so the compiler otherwise keeps each load behind the
+      // previous store, one L2 round trip each.
+      const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      float v[SUB / WARPS][4];
+#pragma unroll
+      for (int s = 0; s < SUB / WARPS; ++s)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = w + WARPS * s, j = lane + 32 * c;
+          v[s][c] = j <= i ? src[(size_t)(off + i) * lds + off + j] : 0.f;
+        }
+#pragma unroll
+      for (int s = 0; s < SUB / WARPS; ++s)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = w + WARPS * s, j = lane + 32 * c;
+          if (j <= i) D[i * SLD + j] = v[s][c];
+        }
+    } else {
+      for (int i = threadIdx.x >> 5; i < SUB; i += WARPS)
+        for (int j = threadIdx.x & 31; j <= i; j += 32)
+          D[i * SLD + j] = src[(size_t)(off + i) * lds + off + j];
+    }
     __syncthreads();
-    block_chol_shared(D, SLD, SUB);
-    invert_lower_shared(D, SLD, X, SLD, SUB);
+    if (FAST) {
+      chol_inv_128_fast(D, X, G);
+    } else {
+      block_chol_shared(D, SLD, SUB);
+      invert_lower_shared(D, SLD, X, SLD, SUB);
+    }
     for (int i = threadIdx.x >> 5; i < SUB; i += WARPS)
       for (int j = threadIdx.x & 31; j <= i; j += 32) {
         L[(size_t)(off + i) * B + off + j] = D[i * SLD + j];
-        Li[(size_t)(off + i) * B + off + j] = X[i * SLD + j];
+        Li[(size_t)(off + i) * B + off + j] =
+            FAST ? (j == i ? X[i] : D[j * SLD + i]) : X[i * SLD + j];
       }
     __syncthreads();
     const int rest = B - off - SUB;
@@ -246,6 +505,18 @@ __device__ void chol_inv_block(const float* A, int lda, int B, float* L, float* 
                              0, Li + (size_t)off * B, B, G);
     }
   }
+}
+
+// K4's routine (K4, and K7's diagonal tiles).
+__device__ void chol_inv_block(const float* A, int lda, int B, float* L, float* Li, float* W,
+                               float* smem) {
+  chol_inv_block_impl<false>(A, lda, B, L, Li, W, smem);
+}
+
+// K6's routine: the same outputs, 32-blocked 128 steps.
+__device__ void chol_inv_block_fast(const float* A, int lda, int B, float* L, float* Li,
+                                    float* W, float* smem) {
+  chol_inv_block_impl<true>(A, lda, B, L, Li, W, smem);
 }
 
 }  // namespace chol_block

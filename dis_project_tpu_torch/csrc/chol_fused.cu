@@ -12,7 +12,8 @@
 // (n = nb * B, B a multiple of 128 up to 512), tile (k, i) being rows i,
 // columns k of L, for i >= k:
 //   C = A[i, k] - sum_{j < k} L[i, j] L[k, j]^T
-//   i == k: L[k, k] and Linv_kk from chol_block.cuh::chol_inv_block (K4's
+//   i == k: L[k, k] and Linv_kk from the diagonal routine (K6:
+//           chol_block.cuh::chol_inv_block_fast; K7: chol_inv_block, K4's
 //           routine); Linv_kk goes to a per-column global buffer
 //   i >  k: L[i, k] = C Linv_kk^T   (the TRSM as a product, as on the TPU)
 //
@@ -36,7 +37,7 @@
 // clock64() budget of a few seconds: past it the CTA sets the error word
 // (sync[1]), stops waiting, writes NaN to its tile and still sets its flag,
 // so a broken dependency shows as an error and a NaN factor, never a hang.
-// A non-PD matrix gives NaN pivots (chol_inv_block writes NaN for a
+// A non-PD matrix gives NaN pivots (both diagonal routines write NaN for a
 // non-positive pivot), which spread to every later tile; every tile still
 // sets its flag.
 //
@@ -60,16 +61,23 @@
 // n^3/3 FP32 operations (5 ms at 67 TFLOP/s for n = 1e4), spread over 132
 // SMs, but column k+1 cannot start its diagonal factorisation before column
 // k's diagonal tile and the tile below it are done: nb dependent diagonal
-// factorisations by one CTA each (K4's routine, 0.27 ms at B = 128), plus one
-// correction step and one TRSM per column. A small B shortens each link and
+// factorisations by one CTA each, plus one correction step and one TRSM per
+// column. Each diagonal tile stamps %globaltimer when it takes its ticket,
+// when it starts its diagonal routine and when it sets its flag (the
+// wrapper's (3, nb) buffer), so the chain is measured, not inferred: with
+// K4's routine (K7) the routine is ~80 % of every link (PERF.md). K6 runs
+// chol_inv_block_fast, whose 32 x 32 pieces are factored and inverted by
+// one warp in registers. It needs 77 KB of shared memory where K4's routine
+// needs 138 KB, but its registers (~200 a thread) hold it to one CTA per
+// SM: capped at 128 so that two fit, it spilled and measured slower
+// (PERF.md). A small B shortens each link and
 // lengthens the chain; the design keeps everything off the chain that can
 // be (the other tiles of a column run their corrections while they wait).
-// Making the links short (a faster diagonal routine, wgmma products, TMA
-// loads) is later work.
 //
 // The C entry points launch on the given stream, allocate nothing (the
-// wrapper passes L, the per-column diagonal scratch and the zeroed sync
-// words), and return cudaGetLastError() (or the attribute call's error).
+// wrapper passes L, the per-column diagonal scratch, the zeroed sync words
+// and the stamps), and return cudaGetLastError() (or the attribute call's
+// error).
 
 #include "chol_block.cuh"
 
@@ -81,8 +89,11 @@ constexpr int TS = 128;      // output subtile
 constexpr int KS = 16;       // k slice
 constexpr int TLD = TS + 4;  // padded shared row: float4 reads stay aligned
 constexpr int MMA_SMEM_FLOATS = 2 * 2 * KS * TLD;
-constexpr int SMEM_FLOATS =
-    CHOL_INV_SMEM_FLOATS > MMA_SMEM_FLOATS ? CHOL_INV_SMEM_FLOATS : MMA_SMEM_FLOATS;
+constexpr int max_floats(int a, int b) { return a > b ? a : b; }
+// Shared memory of each kernel: its diagonal routine's or tile_mma's staging,
+// whichever is larger (they are used one after the other).
+constexpr int SMEM_FLOATS_K6 = max_floats(CHOL_INV_FAST_SMEM_FLOATS, MMA_SMEM_FLOATS);
+constexpr int SMEM_FLOATS_K7 = max_floats(CHOL_INV_SMEM_FLOATS, MMA_SMEM_FLOATS);
 constexpr int MAX_B = 512;
 // ~5 s at the H100's SM clock: far above any legitimate wait (a whole
 // factorisation at n = 1e4 takes tens of milliseconds).
@@ -98,6 +109,12 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // Thread (ty, tx) of a 16 x 16 grid holds rows ty*4 + {0..3} and
 // 64 + ty*4 + {0..3}, columns likewise, of a 128 x 128 subtile.
 __device__ __forceinline__ int frag_row(int r) {
@@ -106,17 +123,29 @@ __device__ __forceinline__ int frag_row(int r) {
 __device__ __forceinline__ int frag_col(int h) { return h * 64 + (threadIdx.x % 16) * 4; }
 
 // dst = src - acc on the thread's fragment (src and dst may be the same).
+// BATCH (K6) issues the loads of each half of the fragment before its
+// stores: since src may alias dst, the compiler otherwise keeps every load
+// behind the previous store, one L2 round trip per float4. K7 keeps the
+// one-at-a-time order.
+template <bool BATCH>
 __device__ void subtract_frag(float acc[8][8], const float* src, float* dst, size_t ld) {
+  constexpr int GROUP = BATCH ? 8 : 1;  // float4 loads in flight
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int g = 0; g < 16; g += GROUP) {
+    float4 v[GROUP];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t e = frag_row(r) * ld + frag_col(h);
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(src + e));
-      *reinterpret_cast<float4*>(dst + e) =
-          make_float4(v.x - acc[r][4 * h], v.y - acc[r][4 * h + 1], v.z - acc[r][4 * h + 2],
-                      v.w - acc[r][4 * h + 3]);
+    for (int q = 0; q < GROUP; ++q) {
+      const int r = (g + q) / 2, h = (g + q) % 2;
+      v[q] = __ldcg(reinterpret_cast<const float4*>(src + frag_row(r) * ld + frag_col(h)));
     }
+#pragma unroll
+    for (int q = 0; q < GROUP; ++q) {
+      const int r = (g + q) / 2, h = (g + q) % 2;
+      *reinterpret_cast<float4*>(dst + frag_row(r) * ld + frag_col(h)) =
+          make_float4(v[q].x - acc[r][4 * h], v[q].y - acc[r][4 * h + 1],
+                      v[q].z - acc[r][4 * h + 2], v[q].w - acc[r][4 * h + 3]);
+    }
+  }
 }
 
 __device__ void store_frag(float acc[8][8], float* C, size_t ld) {
@@ -139,12 +168,13 @@ __device__ void tile_mma(float acc[8][8], const float* A, size_t lda, const floa
   for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  float4 ra[2], rb[2];
+  constexpr int FETCH = TS * KS / 4 / THREADS;  // float4 of each operand per thread
+  float4 ra[FETCH], rb[FETCH];
   auto fetch = [&](int k0) {
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < FETCH; ++p) {
       const int e = threadIdx.x + p * THREADS;
-      const int row = e >> 2, q = e & 3;
+      const int row = e / (KS / 4), q = e % (KS / 4);
       ra[p] = __ldcg(reinterpret_cast<const float4*>(A + row * lda + k0 + 4 * q));
       rb[p] = __ldcg(reinterpret_cast<const float4*>(B + row * ldb + k0 + 4 * q));
     }
@@ -153,9 +183,9 @@ __device__ void tile_mma(float acc[8][8], const float* A, size_t lda, const floa
     float* as = smem + buf * 2 * KS * TLD;
     float* bs = as + KS * TLD;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < FETCH; ++p) {
       const int e = threadIdx.x + p * THREADS;
-      const int row = e >> 2, q = e & 3;
+      const int row = e / (KS / 4), q = e % (KS / 4);
       as[(4 * q) * TLD + row] = ra[p].x, as[(4 * q + 1) * TLD + row] = ra[p].y;
       as[(4 * q + 2) * TLD + row] = ra[p].z, as[(4 * q + 3) * TLD + row] = ra[p].w;
       bs[(4 * q) * TLD + row] = rb[p].x, bs[(4 * q + 1) * TLD + row] = rb[p].y;
@@ -196,6 +226,8 @@ struct Matrix {
   float* L;        // n x n output
   float* diag;     // (nb, 3, B, B): Linv_kk, chol_inv_block's L and its workspace
   int* sync;       // [ticket counter, error word, nb * nb ready flags]
+  long long* stamps;  // (3, nb): %globaltimer (ns) at which diagonal tile k took its
+                      // ticket, began its diagonal routine, and set its ready flag
   int n, B, nb;
 };
 
@@ -230,13 +262,16 @@ __device__ void fill_tile(float* T, size_t ld, int B, float v) {
   }
 }
 
-// Tile (k, i), i >= k: correction, then the diagonal factorisation or the
-// TRSM, then the ready flag.
+// Tile (k, i), i >= k: correction, then the diagonal factorisation (FAST:
+// chol_inv_block_fast, else chol_inv_block) or the TRSM, then the ready
+// flag; a diagonal tile also stamps the time it set its flag.
+template <bool FAST>
 __device__ void factor_tile(const Matrix& m, int k, int i, float* smem, int* gave_up) {
   const size_t n = m.n;
   const int B = m.B, nsub = B / TS;
   const bool on_diag = i == k;
   const size_t tile = (size_t)i * B * n + (size_t)k * B;
+  if (on_diag && threadIdx.x == 0) m.stamps[k] = global_ns();
   const float* At = m.A + tile;
   float* Lt = m.L + tile;
   float* Linv = m.diag + (size_t)k * 3 * B * B;
@@ -252,7 +287,7 @@ __device__ void factor_tile(const Matrix& m, int k, int i, float* smem, int* gav
       if (on_diag && c > r) continue;  // the diagonal routine reads the lower part only
       const size_t sub = (size_t)r * TS * n + (size_t)c * TS;
       tile_mma(acc, Lij + (size_t)r * TS * n, n, Lkj + (size_t)c * TS * n, n, B, smem);
-      subtract_frag(acc, (j == 0 ? At : Lt) + sub, Lt + sub, n);
+      subtract_frag<FAST>(acc, (j == 0 ? At : Lt) + sub, Lt + sub, n);
     }
   }
   __threadfence();
@@ -260,12 +295,24 @@ __device__ void factor_tile(const Matrix& m, int k, int i, float* smem, int* gav
   const float* C = k == 0 ? At : Lt;  // the corrected tile
 
   if (on_diag) {
+    if (threadIdx.x == 0) m.stamps[m.nb + k] = global_ns();
     float* Lbuf = Linv + (size_t)B * B;
-    chol_inv_block(C, (int)n, B, Lbuf, Linv, Lbuf + (size_t)B * B, smem);
-    for (int e = threadIdx.x; e < B * B / 4; e += THREADS) {  // zeros above the diagonal too
-      const int row = e / (B / 4), q = e % (B / 4);
-      *reinterpret_cast<float4*>(Lt + row * n + 4 * q) =
-          reinterpret_cast<const float4*>(Lbuf)[e];
+    if (FAST)
+      chol_inv_block_fast(C, (int)n, B, Lbuf, Linv, Lbuf + (size_t)B * B, smem);
+    else
+      chol_inv_block(C, (int)n, B, Lbuf, Linv, Lbuf + (size_t)B * B, smem);
+    // Zeros above the diagonal too; FAST (K6) with 16 loads in flight
+    // before their stores (see subtract_frag).
+    constexpr int GROUP = FAST ? 16 : 1;
+    for (int e0 = threadIdx.x; e0 < B * B / 4; e0 += GROUP * THREADS) {
+      float4 v[GROUP];
+#pragma unroll
+      for (int q = 0; q < GROUP; ++q) v[q] = reinterpret_cast<const float4*>(Lbuf)[e0 + q * THREADS];
+#pragma unroll
+      for (int q = 0; q < GROUP; ++q) {
+        const int e = e0 + q * THREADS, row = e / (B / 4), c = e % (B / 4);
+        *reinterpret_cast<float4*>(Lt + row * n + 4 * c) = v[q];
+      }
     }
   } else {
     wait_ready(m, k, k, gave_up);
@@ -283,7 +330,10 @@ __device__ void factor_tile(const Matrix& m, int k, int i, float* smem, int* gav
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) st_release(ready(m, k, i), 1);
+  if (threadIdx.x == 0) {
+    st_release(ready(m, k, i), 1);
+    if (on_diag) m.stamps[2 * m.nb + k] = global_ns();
+  }
 }
 
 __device__ int take_ticket(const Matrix& m, int* shared_ticket, int* gave_up) {
@@ -304,7 +354,7 @@ __global__ void __launch_bounds__(THREADS) fused_chol_kernel(Matrix m) {
     fill_tile(m.L + (size_t)i * m.B * m.n + (size_t)k * m.B, m.n, m.B, 0.f);
     return;
   }
-  factor_tile(m, k, i, smem, &gave_up);
+  factor_tile<true>(m, k, i, smem, &gave_up);
 }
 
 __global__ void __launch_bounds__(THREADS) fused_chol2_kernel(Matrix m) {
@@ -315,15 +365,21 @@ __global__ void __launch_bounds__(THREADS) fused_chol2_kernel(Matrix m) {
   while (t >= m.nb - k) t -= m.nb - k++;
   const int i = k + t;
   if (i > k) fill_tile(m.L + (size_t)k * m.B * m.n + (size_t)i * m.B, m.n, m.B, 0.f);
-  factor_tile(m, k, i, smem, &gave_up);
+  factor_tile<false>(m, k, i, smem, &gave_up);
 }
 
-template <typename Kernel>
+using Kernel = void (*)(Matrix);
+
+// Sets the kernel's dynamic shared memory; returns its size in *bytes.
+int prepare(Kernel kernel, size_t* bytes) {
+  *bytes = (kernel == fused_chol_kernel ? SMEM_FLOATS_K6 : SMEM_FLOATS_K7) * sizeof(float);
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)*bytes);
+}
+
 int launch(Kernel kernel, int tiles, const Matrix& m, cudaStream_t stream) {
-  const size_t bytes = SMEM_FLOATS * sizeof(float);
-  if (int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          (int)bytes))
-    return err;
+  size_t bytes;
+  if (int err = prepare(kernel, &bytes)) return err;
   kernel<<<tiles, THREADS, bytes, stream>>>(m);
   return (int)cudaGetLastError();
 }
@@ -333,16 +389,26 @@ bool valid(int n, int B) { return B > 0 && B % SUB == 0 && B <= MAX_B && n > 0 &
 }  // namespace
 
 extern "C" int fused_chol_f32(const float* A, int n, int B, float* L, float* diag, int* sync,
-                              cudaStream_t stream) {
+                              long long* stamps, cudaStream_t stream) {
   if (!valid(n, B)) return (int)cudaErrorInvalidValue;
   const int nb = n / B;
-  return launch(fused_chol_kernel, nb * nb, Matrix{A, L, diag, sync, n, B, nb}, stream);
+  return launch(fused_chol_kernel, nb * nb, Matrix{A, L, diag, sync, stamps, n, B, nb}, stream);
 }
 
 extern "C" int fused_chol2_f32(const float* A, int n, int B, float* L, float* diag, int* sync,
-                               cudaStream_t stream) {
+                               long long* stamps, cudaStream_t stream) {
   if (!valid(n, B)) return (int)cudaErrorInvalidValue;
   const int nb = n / B;
-  return launch(fused_chol2_kernel, nb * (nb + 1) / 2, Matrix{A, L, diag, sync, n, B, nb},
-                stream);
+  return launch(fused_chol2_kernel, nb * (nb + 1) / 2,
+                Matrix{A, L, diag, sync, stamps, n, B, nb}, stream);
+}
+
+// CTAs per SM of K6 (which == 6) or K7 (which == 7) at their shared memory,
+// from cudaOccupancyMaxActiveBlocksPerMultiprocessor, into *blocks.
+extern "C" int fused_chol_occupancy(int which, int* blocks) {
+  if (which != 6 && which != 7) return (int)cudaErrorInvalidValue;
+  const Kernel kernel = which == 6 ? fused_chol_kernel : fused_chol2_kernel;
+  size_t bytes;
+  if (int err = prepare(kernel, &bytes)) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, bytes);
 }

@@ -10,9 +10,10 @@ Port of ``dis_project_tpu/ops/pallas_cholesky.py``. Kernels (``csrc/``):
 - :func:`chol_inv_unblocked` — K4, ``csrc/chol_block.cu::chol_inv_kernel``,
   replacing ``_chol_inv_kernel``: L and L⁻¹ of one (B, B) SPD block,
   B a multiple of 128 up to 512, float32.
-- :func:`chol_unblocked` — K5, ``csrc/chol_block.cu::chol_kernel``,
+- :func:`chol_unblocked` — K5, ``csrc/chol_block.cu::chol_cluster_kernel``,
   replacing ``_chol_kernel``: L of one (B, B) SPD block, any B up to 512,
-  float32.
+  float32, factored by a thread-block cluster of :func:`k5_cluster_size`
+  CTAs with the block in their shared memory.
 
 Around them, the JAX package's matmul-level algorithms, one to one:
 :func:`tri_inv` (bottom-up doubling), :func:`tri_inv_panels`,
@@ -47,9 +48,9 @@ LAUNCHES = {"syrk_ltl_tril": 0, "chol_inv_unblocked": 0, "chol_unblocked": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SYRK_SIGNATURES = {"syrk_ltl_tril_f32": [_P, _I, _P, _P]}
 CHOL_SIGNATURES = {
-    # (A, lda, B, L, Li, W, stream) and (A, lda, B, L, W, stream)
+    # (A, lda, B, L, Li, W, stream) and (A, lda, B, L, cluster, stream)
     "chol_inv_block_f32": [_P, _I, _I, _P, _P, _P, _P],
-    "chol_block_f32": [_P, _I, _I, _P, _P, _P],
+    "chol_block_f32": [_P, _I, _I, _P, _I, _P],
 }
 
 # Default block of the O(N³) ops below mid scale (blocked_cholesky's
@@ -314,17 +315,26 @@ def chol_inv_unblocked(a):
     return chol_inv_unblocked_plain(a)
 
 
+def k5_cluster_size(B):
+    """CTAs in K5's thread-block cluster for a (B, B) block: one per 32-row
+    block, at most 8 (the portable cluster size), so that no CTA holds more
+    than two row blocks (64 rows; 202 KB of shared memory at B = 512). The
+    fastest size that fits at B = 96, 128, 256 and 512 on an H100
+    (``chip_smoke.py``'s ``[K5] ... ms by cluster size`` lines, PERF.md)."""
+    return min(8, max(1, -(-B // 32)))
+
+
 def chol_unblocked_kernel(a):
     """Launch K5 on a CUDA float32 (B, B) SPD block, B <= 512: its lower
-    Cholesky factor, zeros above the diagonal."""
+    Cholesky factor, zeros above the diagonal. Raises when the cluster
+    cannot be launched."""
     a = _check_block(a, "chol_unblocked", 1)
     B = a.shape[0]
     L = torch.empty((B, B), dtype=a.dtype, device=a.device)
-    W = torch.empty_like(L)  # trailing-matrix workspace
     lib = cuda_build.load("chol_block", CHOL_SIGNATURES)
     with torch.cuda.device(a.device):
-        code = lib.chol_block_f32(a.data_ptr(), a.stride(0), B, L.data_ptr(), W.data_ptr(),
-                                  cuda_build.stream_handle(a.device))
+        code = lib.chol_block_f32(a.data_ptr(), a.stride(0), B, L.data_ptr(),
+                                  k5_cluster_size(B), cuda_build.stream_handle(a.device))
     LAUNCHES["chol_unblocked"] += 1
     cuda_build.check(code, "chol_block")
     return L
@@ -336,6 +346,87 @@ def chol_unblocked(a):
     if a.is_cuda:
         return chol_unblocked_kernel(a)
     return cholesky_nan(a)
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of the kernels' blocking, in PyTorch (tests only).
+# ---------------------------------------------------------------------------
+
+
+def _warp_chol32_mirror(D):
+    """In place, the (w, w) lower block ``D`` (w <= 32) by rank-1 steps in
+    the order of ``warp_chol32``; a non-positive pivot gives NaN."""
+    for k in range(D.shape[0]):
+        piv = D[k, k]
+        d = torch.where(piv > 0, piv.clamp(min=0).sqrt(), torch.full_like(piv, float("nan")))
+        col = D[k + 1:, k] / d
+        D[k, k] = d
+        D[k + 1:, k] = col
+        D[k + 1:, k + 1:] -= torch.outer(col, col).tril()
+
+
+def _panels32_mirror(R, X=None):
+    """In place, the lower factor of ``R`` (size a multiple of 32),
+    right-looking over 32-wide panels: the diagonal piece by
+    :func:`_warp_chol32_mirror`, the panel below it by substitution, the
+    rank-32 trailing update summed per entry and subtracted once. ``X``, if
+    given, takes each piece's inverse (by substitution) on its diagonal."""
+    n = R.shape[0]
+    for off in range(0, n, 32):
+        t0 = off + 32
+        D = R[off:t0, off:t0]
+        _warp_chol32_mirror(D)
+        if X is not None:
+            X[off:t0, off:t0] = torch.linalg.solve_triangular(
+                D, torch.eye(32, dtype=R.dtype), upper=False)
+        if t0 < n:
+            P = torch.linalg.solve_triangular(D.T, R[t0:, off:t0], upper=True, left=False)
+            R[t0:, off:t0] = P
+            R[t0:, t0:] -= (P @ P.T).tril()
+
+
+def _chol_cluster_mirror(a):
+    """K5's blocking (``chol_cluster_kernel``): the block identity-padded to
+    a multiple of 32, then :func:`_panels32_mirror`."""
+    B = a.shape[0]
+    R = _pad_identity(a, -(-B // 32) * 32).tril()
+    _panels32_mirror(R)
+    return R[:B, :B].tril()
+
+
+def _chol_inv_128_mirror(a):
+    """``chol_inv_128_fast``: L and L⁻¹ of a (128, 128) block by
+    :func:`_panels32_mirror` with the pieces' inverses, then the block-wise
+    inverse X[p, :p] = -X[p, p] (L[p, :p] X[:p, :p])."""
+    F = a.tril()
+    X = torch.zeros_like(F)
+    _panels32_mirror(F, X)
+    for off in range(32, _SUB, 32):
+        T = F[off:off + 32, :off] @ X[:off, :off]
+        X[off:off + 32, :off] = -(X[off:off + 32, off:off + 32] @ T)
+    return F, X
+
+
+def _chol_inv_fast_mirror(a):
+    """``chol_inv_block_fast`` (K6's diagonal routine): L and L⁻¹ of a
+    (B, B) block, B a multiple of 128, left-looking over 128-wide panels as
+    :func:`chol_inv_unblocked` (the TRSM a product with the panel's
+    inverse, the block-wise inverse assembly), each 128 step
+    :func:`_chol_inv_128_mirror`."""
+    B = a.shape[0]
+    W = a.tril()
+    L, Li = torch.zeros_like(W), torch.zeros_like(W)
+    for off in range(0, B, _SUB):
+        end = off + _SUB
+        Ld, Xd = _chol_inv_128_mirror(W[off:end, off:end])
+        L[off:end, off:end], Li[off:end, off:end] = Ld, Xd
+        if end < B:
+            Lp = W[end:, off:end] @ Xd.T
+            L[end:, off:end] = Lp
+            W[end:, end:] -= Lp @ Lp.T
+        if off:
+            Li[off:end, :off] = -(Xd @ (L[off:end, :off] @ Li[:off, :off]))
+    return L, Li
 
 
 def _diag_chol(a, diag):

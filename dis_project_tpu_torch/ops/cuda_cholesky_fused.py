@@ -15,7 +15,7 @@ Port of ``dis_project_tpu/ops/pallas_cholesky_fused.py``. Kernels
 Both compute, for each tile (k, i), i >= k, of ``block`` x ``block``::
 
     C      = A[i, k] - sum_j L[i, j] L[k, j]^T     # j < k, in order
-    i == k: L[k, k], Linv_kk = chol_inv(C)          # the K4 device routine
+    i == k: L[k, k], Linv_kk = chol_inv(C)          # the diagonal routine
     i >  k: L[i, k] = C Linv_kk^T                   # the TRSM as a product
 
 The TPU grid runs in order; CTAs on the card do not, so each CTA takes an
@@ -27,15 +27,19 @@ warning, ``pallas_cholesky_fused.py:6-14``); the port holds to the
 f32-faithful rule of the rest of the engine and does not copy that.
 
 ``block`` on the card: a multiple of 128 up to 512 (what the diagonal
-routine ``chol_block.cuh::chol_inv_block`` takes); anything else raises
-there. The plain version takes any block. The defaults (128 for both) are
-the card's choice, not the JAX package's v5e values (512 and 1024): at
-N = 1e4 on the real dense10k Σ, block 128 is the fastest block whose
-reconstruction max|LLᵀ − Σ|/max|Σ| holds 2x cuSOLVER's. Measured by
+routines ``chol_block.cuh::chol_inv_block_fast`` (K6) and
+``chol_inv_block`` (K7) take); anything else raises there. The plain
+version takes any block. The defaults (128 for both) are the card's
+choice, not the JAX package's v5e values (512 and 1024): at N = 1e4 on the
+real dense10k Σ, block 128 is the fastest block whose reconstruction
+max|LLᵀ − Σ|/max|Σ| holds 2x cuSOLVER's, for both kernels. Measured by
 ``chip_smoke.py``'s ``[K6]``/``[K7]`` block lines on an NVIDIA H100 80GB
-HBM3 at 700 W: 23.4 ms at block 128, 36.7 at 256, 79.6–80.0 at 512
-(cuSOLVER's ``torch.linalg.cholesky`` 13.9 ms), reconstructions 0.10x,
-0.16x and 0.25x cuSOLVER's (PERF.md).
+HBM3 at 700 W (PERF.md): K6 17.4 ms at block 128, 25.4 at 256, 63.6
+at 512; K7 23.2, 34.5 and 72.3 (cuSOLVER's ``torch.linalg.cholesky``
+14.1 ms); reconstructions 0.10x-0.27x cuSOLVER's. K6 is faster for its
+diagonal routine alone (109 µs a tile inside the kernel, against 233 µs
+for K7's); its chain of diagonal tiles still sets its pace
+(:func:`chain_stamps`).
 
 ``chunk`` grouped the TPU's DMA reads of finished columns; here it only
 sets the padding quantum (the size is identity-padded to a multiple of
@@ -60,6 +64,7 @@ from dis_project_tpu_torch.ops import cuda_build
 from dis_project_tpu_torch.ops.cuda_cholesky import (
     _PALLAS_CHOL_MAX_B,
     _SUB,
+    _chol_inv_fast_mirror,
     _pad_identity,
     blocked_cholesky,
     chol_inv_unblocked_plain,
@@ -74,14 +79,17 @@ _CHUNK2 = 2   # K7's default chunk
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FUSED_SIGNATURES = {
-    # (A, n, B, L, diag_scratch, sync, stream)
-    "fused_chol_f32": [_P, _I, _I, _P, _P, _P, _P],
-    "fused_chol2_f32": [_P, _I, _I, _P, _P, _P, _P],
+    # (A, n, B, L, diag_scratch, sync, stamps, stream)
+    "fused_chol_f32": [_P, _I, _I, _P, _P, _P, _P, _P],
+    "fused_chol2_f32": [_P, _I, _I, _P, _P, _P, _P, _P],
+    # (which kernel: 6 or 7, int* CTAs per SM)
+    "fused_chol_occupancy": [_I, _P],
 }
 
 # The sync words of each kernel's last launch: [ticket counter, error word,
-# nb * nb tile-ready flags].
+# nb * nb tile-ready flags]; and its chain stamps (see chain_stamps).
 _LAST_SYNC: dict = {}
+_LAST_STAMPS: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +102,16 @@ def fused_cholesky_plain(a, block):
     kernels' order and arithmetic, with PyTorch products (each column's
     tiles batched into one product per finished column block). The size is
     identity-padded to a multiple of ``block`` and sliced back."""
+    return _tile_factor(a, block, chol_inv_unblocked_plain)
+
+
+def _fused_cholesky_mirror(a, block):
+    """K6's blocking (tests only): the tile factorisation with its diagonal
+    tiles through the mirror of ``chol_inv_block_fast``."""
+    return _tile_factor(a, block, _chol_inv_fast_mirror)
+
+
+def _tile_factor(a, block, diag):
     n = a.shape[0]
     npad = -(-n // block) * block
     A = _pad_identity(a, npad) if npad != n else a
@@ -102,7 +120,7 @@ def fused_cholesky_plain(a, block):
         C = A[off:, off:off + block].clone()
         for j in range(0, off, block):
             C -= L[off:, j:j + block] @ L[off:off + block, j:j + block].T
-        lkk, linv = chol_inv_unblocked_plain(C[:block])
+        lkk, linv = diag(C[:block])
         L[off:off + block, off:off + block] = lkk
         L[off + block:, off:off + block] = C[block:] @ linv.T
     return L[:n, :n] if npad != n else L
@@ -139,13 +157,16 @@ def _launch(a, block, what, symbol):
     # tiles), and the diagonal routine's L and trailing workspace.
     diag = torch.empty((nb, 3, block, block), dtype=a.dtype, device=a.device)
     sync = torch.zeros(2 + nb * nb, dtype=torch.int32, device=a.device)
+    stamps = torch.zeros((3, nb), dtype=torch.int64, device=a.device)
     lib = cuda_build.load("chol_fused", FUSED_SIGNATURES)
     with torch.cuda.device(a.device):
         code = getattr(lib, symbol)(a.data_ptr(), n, block, L.data_ptr(), diag.data_ptr(),
-                                    sync.data_ptr(), cuda_build.stream_handle(a.device))
+                                    sync.data_ptr(), stamps.data_ptr(),
+                                    cuda_build.stream_handle(a.device))
     LAUNCHES[what] += 1
     cuda_build.check(code, symbol)
     _LAST_SYNC[what] = sync
+    _LAST_STAMPS[what] = stamps
     return L
 
 
@@ -166,6 +187,26 @@ def error_word(what):
     or ``'fused_cholesky2'``): 0, or 1 when a CTA timed out waiting for a
     tile. Reading it waits for the launch to finish."""
     return int(_LAST_SYNC[what][1])
+
+
+def chain_stamps(what):
+    """The chain stamps of the last launch of ``what``: a (3, nb) int64 CUDA
+    tensor, the card's %globaltimer in ns at which diagonal tile k took its
+    ticket (row 0), began its diagonal routine after its corrections (row
+    1) and set its ready flag (row 2). Reading it waits for the launch to
+    finish."""
+    return _LAST_STAMPS[what]
+
+
+def occupancy(what):
+    """CTAs per SM of ``what``'s kernel at its shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
+    lib = cuda_build.load("chol_fused", FUSED_SIGNATURES)
+    out = ctypes.c_int(0)
+    which = 6 if what == "fused_cholesky" else 7
+    cuda_build.check(lib.fused_chol_occupancy(which, ctypes.addressof(out)),
+                     "fused_chol_occupancy")
+    return out.value
 
 
 # ---------------------------------------------------------------------------
