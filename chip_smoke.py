@@ -6,24 +6,32 @@ It needs one CUDA card and ``nvcc``; it imports nothing of JAX or of the
 JAX package. Phases (each raises on failure):
 
 1. Build the kernels from ``dis_project_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together); print the build seconds and the card's
-   ``nvidia-smi`` name and power limit.
+   source, started together); print the build seconds, the card's
+   ``nvidia-smi`` name and power limit, and every kernel's registers, local
+   memory (spills) and static shared memory (``[kernels] attrs``).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with the tolerance stated beside each check, and
    time kernel, plain version and the library call (where one exists) with
    CUDA events (median of repeats). K3, K4 and K5 take inputs made from the
    real dense10k Σ at the init parameters; K4 and K5 are held to an f64
    factor computed on the card: their error may be at most twice the plain
-   float32 version's; K5 (a thread-block cluster) at B in {32, 96, 100,
-   128, 256, 512}, with its cluster size, timed at every cluster size whose
-   shared memory fits, and a block with a negative pivot giving NaN
-   without hanging. K6 and K7 factor that whole Σ (N = 1e4):
-   each within twice cuSOLVER's distance from the f64 factor of its plain
-   version, its reconstruction at most twice cuSOLVER's at the default
-   block, an exactly zero upper triangle, two calls bitwise equal, a non-PD
-   Σ giving NaN without hanging, the error word 0 after every call; a time
-   for each block in {128, 256, 512}; the diagonal chain's timeline from
-   the kernels' own %globaltimer stamps, and each kernel's CTAs per SM.
+   float32 version's; K4 at B = 128 also prints its phases from its own
+   %globaltimer stamps and the wrapper's host time per call (``[K4
+   phases]``); K5 (a thread-block cluster) at B in {32, 96, 100, 128, 256,
+   512}, with its cluster size, timed at every cluster size whose shared
+   memory fits, and a block with a negative pivot giving NaN without
+   hanging. K6 and K7 factor that whole Σ (N = 1e4): each within twice
+   cuSOLVER's distance from the f64 factor of its plain version, its
+   reconstruction at most twice cuSOLVER's at the default block, an
+   exactly zero upper triangle, two calls bitwise equal, a non-PD Σ giving
+   NaN without hanging, the error word 0 after every call; a time for each
+   block in {128, 256, 512}; the diagonal chain's timeline from the
+   kernels' own %globaltimer stamps, each link split into the TRSM below
+   the previous diagonal tile, the lateness of the diagonal tile's own
+   corrections, its last correction and its routine; each kernel's CTAs
+   per SM. K7's factor must equal K6's bitwise at every block, and K7's
+   under the JAX order (depth 0); K7's look-ahead depth is swept (``[K7]
+   d=...``), and an order that defers far tiles instead is timed beside it.
 3. The main paths, each driven with every launch count set to 0 just
    before it and read just after; each path's kernels must have launched:
    - the canonical route (``main.run``, p53, float64) and the golden
@@ -37,12 +45,15 @@ JAX package. Phases (each raises on failure):
      ``fused_cholesky2`` (K7) at N = 1e4 on the real Σ;
    - the dense10k route (``main.run_dense``, 50 x 200 = 1e4, float32,
      10 Adam steps), whose ``'auto'`` engine is ``'xla'``: per-step ms,
-     peak memory;
+     their spread, peak memory;
    - ``latent_predict`` at N = 1e4 on the 200-point training grid;
    - the same 10 steps on the same data through
      ``ExactSIMM(chol_impl='blocked')``, with run_dense's training loop.
 4. Each dense route's first step against the plain float32 path (loss rel
-   1e-5, gradient direction cosine >= 0.999), and its stage breakdown.
+   1e-5, gradient direction cosine >= 0.999), its stage breakdown, the
+   blocked factorisation's host enqueue time beside its device time, and
+   the ``[auto]`` line: both step medians, whether the blocked step is
+   faster by more than the step spread, and what ``'auto'`` resolves to.
 5. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
@@ -140,6 +151,14 @@ def main():
     smi = nvidia_smi_line()
     print(f"[build] kernels built in {build_s:.1f}s")
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    # Registers a thread, local memory a thread (spills) and static shared
+    # memory a CTA of every kernel (cudaFuncGetAttributes).
+    for name, signatures in (("simm_gram", cuda_gram.SIGNATURES), ("syrk", cc.SYRK_SIGNATURES),
+                             ("chol_block", cc.CHOL_SIGNATURES),
+                             ("chol_fused", cf.FUSED_SIGNATURES)):
+        for kernel, regs, local, shared in cuda_build.kernel_attributes(name, signatures):
+            print(f"[kernels] attrs {kernel}: numRegs {regs}, localSizeBytes {local}, "
+                  f"sharedSizeBytes {shared}")
 
     # -- phase 2: kernels against their plain versions -----------------------
     gen = torch.Generator().manual_seed(1234)
@@ -318,8 +337,33 @@ def main():
         print(f"[{key}] B={B}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
               f"bound_ms {b:.5f} ({by}) library_ms {rec['library_ms']} "
               f"cholesky+solve pair ms {rec.get('pair_ms')}")
+        if key == "K4" and B == 128:
+            k4_phases(A)
         if timed == "main":
             records[key] = rec
+
+    def k4_phases(A):
+        """K4's phases from its own %globaltimer stamps (median of 20
+        launches, each read back), and the wrapper's host time per call
+        (200 calls enqueued back to back)."""
+        rows = []
+        for _ in range(20):
+            cc.chol_inv_unblocked_kernel(A)
+            rows.append(cc.k4_phase_stamps(A.device).double().cpu() / 1e3)
+        st = torch.stack(rows)
+        phases = (st[:, 1:] - st[:, :-1]).median(dim=0).values.tolist()
+        device_us = float((st[:, -1] - st[:, 0]).median())
+        torch.cuda.synchronize()
+        calls = 200
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            cc.chol_inv_unblocked_kernel(A)
+        host_us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        named = ", ".join(f"{name} {us:.2f}" for name, us in zip(cc.K4_PHASES[1:], phases))
+        print(f"[K4 phases] B={A.shape[0]} us (each from the previous stamp): {named}; "
+              f"device (entry to stored) {device_us:.2f} us; host us per call {host_us:.1f} "
+              f"({'above' if host_us > device_us else 'below'} the device time)")
 
     # The shapes of the main path: K4 at B=128 (blocked_cholesky_t's
     # diagonal step), K5 at B=512 (blocked_cholesky's); the others checked
@@ -370,19 +414,41 @@ def main():
     # cuSOLVER's level.
     sigma_max = float(sigma.abs().max())
 
-    def chain_line(key, what, B, kernel_ms):
-        """The diagonal chain of the last launch (the last timed call), from
-        the kernel's stamps: ticket, start of the diagonal routine, flag."""
-        st = cf.chain_stamps(what).double().cpu() / 1e3  # microseconds
-        links = st[2, 1:] - st[2, :-1]
-        routine = st[2] - st[1]
-        corrections = st[1] - st[0]
+    def chain_line(key, label, stamps, kernel_ms):
+        """The diagonal chain of one launch from its stamps (rows
+        cf.CHAIN_ROWS). Link k-1 -> k, from diagonal flag to diagonal flag,
+        splits into: the previous TRSM (diagonal flag k-1 to the flag of
+        the sub-diagonal tile (k-1, k), its own corrections' lateness
+        included); the diagonal tile's lateness (its corrections j < k-1
+        still running at that flag); its last correction step; its routine."""
+        ticket, early, start, flag, subdiag = stamps.double().cpu() / 1e3  # microseconds
+        links = flag[1:] - flag[:-1]
+        trsm = subdiag[1:] - flag[:-1]
+        late = (early[1:] - subdiag[1:]).clamp(min=0)
+        last = start[1:] - torch.maximum(early[1:], subdiag[1:])
+        routine = flag - start
         share = float(routine.sum()) / 1e3 / kernel_ms
-        print(f"[{key} chain] B={B}: {st.shape[1]} links, mean {float(links.mean()):.1f} us, max "
-              f"{float(links.max()):.1f} us; diagonal routine mean {float(routine.mean()):.1f} us, "
-              f"sum {float(routine.sum()) / 1e3:.3f} ms = {100 * share:.1f} % of the kernel's "
-              f"{kernel_ms:.3f} ms; a diagonal tile's corrections mean "
-              f"{float(corrections.mean()):.1f} us")
+        print(f"[{key} chain] {label}: {stamps.shape[1] - 1} links, mean {float(links.mean()):.1f} us "
+              f"(max {float(links.max()):.1f}) = previous TRSM {float(trsm.mean()):.1f} + "
+              f"late corrections {float(late.mean()):.1f} (in {int((late > 0).sum())} links) + "
+              f"last correction {float(last.mean()):.1f} + routine {float(routine[1:].mean()):.1f}; "
+              f"routines {float(routine.sum()) / 1e3:.3f} ms = {100 * share:.1f} % of "
+              f"{kernel_ms:.3f} ms; ticket to routine mean {float((start - ticket).mean()):.1f} us")
+
+    def k7_with_table(A, B, table):
+        """K7 through its C entry point with any (tickets, 2) int32 order
+        table on the card (not counted): its factor, sync words and chain
+        stamps."""
+        lib = cuda_build.load("chol_fused", cf.FUSED_SIGNATURES)
+        nb = A.shape[0] // B
+        L = torch.empty_like(A)
+        diag = torch.empty((nb, 3, B, B), dtype=f32, device=dev)
+        sync = torch.zeros(2 + nb * nb, dtype=torch.int32, device=dev)
+        stamps = torch.zeros((len(cf.CHAIN_ROWS), nb), dtype=torch.int64, device=dev)
+        cuda_build.check(lib.fused_chol2_f32(
+            A.data_ptr(), A.shape[0], B, L.data_ptr(), diag.data_ptr(), sync.data_ptr(),
+            stamps.data_ptr(), table.data_ptr(), cuda_build.stream_handle(dev)), "K7")
+        return L, sync, stamps
 
     def recon(L):
         L64 = L.double()
@@ -397,6 +463,7 @@ def main():
     library_ms = cuda_ms(lambda: torch.linalg.cholesky(sigma), reps=5, warmup=1)
     # N^3/3 FP32 operations; each input byte read once, the factor written once.
     b, by = bound_ms(2 * n * n * 4, n**3 / 3)
+    pads, factors = {}, {}
     for key, fn, kernel, what, quantum, default in (
         ("K6", cf.fused_cholesky, cf.fused_cholesky_kernel, "fused_cholesky", cf._CHUNK,
          cf.DEFAULT_BLOCK),
@@ -441,8 +508,9 @@ def main():
         for B in (128, 256, 512):
             npad = -(-n // (B * quantum)) * (B * quantum)
             A_pad = cc._pad_identity(sigma, npad)
-            L_b = kernel(A_pad, B)[:n, :n]
-            r_b = recon(L_b)
+            L_b = kernel(A_pad, B)
+            pads[B] = npad
+            r_b = recon(L_b[:n, :n])
             block_ms[B] = cuda_ms(lambda: kernel(A_pad, B), reps=5, warmup=1)
             print(f"[{key}] block {B}: ms {block_ms[B]:.4f}, max|LL^T - Sigma|/max|Sigma| "
                   f"{r_b:.3e} ({r_b / rec_cusolver:.2f}x cuSOLVER's), error word "
@@ -450,7 +518,8 @@ def main():
             require(cf.error_word(what) == 0, f"{key} block {B}: error word set")
             if r_b > 2 * rec_cusolver:
                 block_ms[B] = math.inf
-            chain_line(key, what, B, block_ms[B])
+            chain_line(key, f"B={B}", cf.chain_stamps(what), block_ms[B])
+            factors[key, B] = L_b
             if B == default:
                 A_def = A_pad
             del A_pad, L_b
@@ -463,6 +532,52 @@ def main():
             shape=f"{n}x{n} f32 (padded to {A_def.shape[0]}), B={default}",
         )
         del L, plain, A_def
+
+    # K7 runs K6's tile program in another ticket order: its factor must be
+    # K6's bitwise at every block (both pad 10000 to the same size), and the
+    # same bitwise under the JAX order (depth 0). A difference means a
+    # missing wait or a wrong table.
+    for B in (128, 256, 512):
+        require(pads[B] == -(-n // (B * cf._CHUNK)) * (B * cf._CHUNK), "K6/K7 padding differs")
+        A_pad = cc._pad_identity(sigma, pads[B])
+        L_jax = cf.fused_cholesky2_kernel(A_pad, B, 0)
+        same_k6 = bool(torch.equal(factors["K7", B], factors["K6", B]))
+        same_jax = bool(torch.equal(factors["K7", B], L_jax))
+        print(f"[K7] B={B} depth {cf._LOOKAHEAD}: bitwise equal to K6 {same_k6}, to K7 under the "
+              f"JAX order {same_jax}; error word {cf.error_word('fused_cholesky2')}")
+        require(same_k6 and same_jax and cf.error_word("fused_cholesky2") == 0,
+                f"K7 B={B}: factor differs from K6's or from the JAX order's")
+        del A_pad, L_jax
+    # The look-ahead depth: each depth's time and chain at the default block
+    # (depth 0 is the JAX order, 1 the same order, nb row order); the
+    # module's depth should be the fastest. Then, for comparison, the
+    # order (max(k, i - d), k, i), which defers far tiles to later waves
+    # instead of hoisting the diagonal ones, through the C entry point.
+    B = cf.DEFAULT_BLOCK2
+    A_pad = cc._pad_identity(sigma, pads[B])
+    nb = pads[B] // B
+    L_ref = factors["K7", B]
+    depth_ms = {}
+    for d in (0, 2, 3, 4, 6, 8, nb):
+        L_d = cf.fused_cholesky2_kernel(A_pad, B, d)
+        same = bool(torch.equal(L_d, L_ref))
+        require(same and cf.error_word("fused_cholesky2") == 0, f"K7 depth {d}: factor differs")
+        depth_ms[d] = cuda_ms(lambda: cf.fused_cholesky2_kernel(A_pad, B, d), reps=5, warmup=1)
+        print(f"[K7] d={d} ms {depth_ms[d]:.4f}; bitwise equal to depth {cf._LOOKAHEAD}: {same}")
+        chain_line("K7", f"B={B} d={d}", cf.chain_stamps("fused_cholesky2"), depth_ms[d])
+    print(f"[K7] fastest depth {min(depth_ms, key=depth_ms.get)} (module depth {cf._LOOKAHEAD})")
+    tiles = [(k, i) for k in range(nb) for i in range(k, nb)]
+    for d in (2, 8):
+        table = torch.tensor(sorted(tiles, key=lambda t: (max(t[0], t[1] - d), t[0], t[1])),
+                             dtype=torch.int32, device=dev)
+        L_d, sync, stamps = k7_with_table(A_pad, B, table)
+        same = bool(torch.equal(L_d, L_ref))
+        require(same and int(sync[1]) == 0, f"K7 deferring order d={d}: factor differs")
+        t_ms = cuda_ms(lambda: k7_with_table(A_pad, B, table), reps=5, warmup=1)
+        print(f"[K7] deferring order (max(k, i - d), k, i) d={d}: ms {t_ms:.4f}; bitwise equal: "
+              f"{same}")
+        chain_line("K7", f"B={B} deferring d={d}", stamps, t_ms)
+    del A_pad, L_ref, L_d, factors
     del L_f64
 
     for name, r in records.items():
@@ -608,14 +723,15 @@ def main():
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         hist = dense.result.history.tolist()
         step_ms = [1e3 * s for s in dense.step_seconds]
-        steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+        steady = statistics.median(step_ms[1:])
+        q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
         print(f"[dense {impl}] N={dense.X.shape[0]} losses {hist}")
         print(f"[dense {impl}] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) "
-              f"{steady:.3f}; peak memory {peak_gib:.3f} GiB")
+              f"{steady:.3f}, spread (interquartile) {q3 - q1:.3f}; peak memory {peak_gib:.3f} GiB")
         require(all(math.isfinite(v) for v in hist), f"dense {impl} losses not finite")
-        return dense, steady, peak_gib
+        return dense, steady, q3 - q1, peak_gib
 
-    dense, steady_xla, peak_xla = dense_route("xla")
+    dense, steady_xla, spread_xla, peak_xla = dense_route("xla")
 
     # latent_predict at N = 1e4 on the 200-point training grid, through K1.
     def latent_route():
@@ -634,7 +750,7 @@ def main():
     print(f"[dense] latent posterior at N={dense.X.shape[0]}: finite, "
           f"corr with generating force {corr:.4f}")
 
-    dense_b, steady_blocked, peak_blocked = dense_route("blocked", base=dense)
+    dense_b, steady_blocked, spread_blocked, peak_blocked = dense_route("blocked", base=dense)
 
     # -- phase 4: each engine's first dense step vs the plain f32 path ------
     plain_model = simm.ExactSIMM(num_genes=G, jitter=dense.model.jitter, canonical_rows=True,
@@ -706,6 +822,16 @@ def main():
                     "tri_inv_from_diag": lambda: cc.tri_inv_from_diag(L_b, dinvs).contiguous(),
                     **tail},
     }
+    # Does the host set the pace of the blocked factorisation (80 K4
+    # launches, each ~30 us of Python and launch)? Its enqueue time on the
+    # host clock (no synchronisation inside) beside its CUDA-event time.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cc.blocked_cholesky_t(sigma, return_diag_inv=True)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    print(f"[dense blocked] blocked_cholesky_t host enqueue {enqueue_ms:.3f} ms vs device "
+          f"{cuda_ms(lambda: cc.blocked_cholesky_t(sigma, return_diag_inv=True), reps=5):.3f} ms")
     stage_ms = {}
     for impl, stages in stage_tables.items():
         stage_ms[impl] = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
@@ -713,10 +839,16 @@ def main():
         print(f"[dense {impl}] stage ms {json.dumps(stage_ms[impl])}; "
               f"sum {sum(stage_ms[impl].values()):.3f} vs step median {steady:.3f}")
     del K, sigma, L, Li, tril_inv, dsig, Lt, dinvs, L_b
-    faster = "blocked" if steady_blocked < steady_xla else "xla"
+    # 'auto' may take 'blocked' on the card only where a run shows the
+    # blocked step faster than the xla step by more than the larger of the
+    # two step spreads (ops/mll.py, resolve_chol_impl).
+    spread = max(spread_xla, spread_blocked)
+    beyond = steady_xla - steady_blocked > spread
     print(f"[auto] dense10k step median: xla {steady_xla:.3f} ms ({peak_xla:.3f} GiB), "
-          f"blocked {steady_blocked:.3f} ms ({peak_blocked:.3f} GiB); faster: {faster}; "
-          f"'auto' resolves to {mll_ops.resolve_chol_impl(G * T, f32, dev)!r} on the card")
+          f"blocked {steady_blocked:.3f} ms ({peak_blocked:.3f} GiB); xla - blocked "
+          f"{steady_xla - steady_blocked:.3f} ms, spread {spread:.3f} ms: blocked faster by more "
+          f"than the spread: {beyond}; 'auto' resolves to "
+          f"{mll_ops.resolve_chol_impl(G * T, f32, dev)!r} on the card")
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():

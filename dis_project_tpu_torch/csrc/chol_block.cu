@@ -10,15 +10,16 @@
 // (B = 128, one launch per 128 columns of the f32 MLL factor); both kernels
 // are the diag= options of blocked_cholesky (B = 512).
 //
-// K4 (unchanged since it was ported): one CTA, left-looking over 128-wide
-// panels (chol_block.cuh, chol_inv_block): the 128 x 128 diagonal block
-// factored (32-wide panels, register-summed trailing updates) and inverted
-// by substitution in shared memory (the TPU's nilpotent doubling diverges on
-// real Gram factors), the TRSM as a product with that inverse, the trailing
-// matrix in a global workspace, the block-wise inverse assembly. What bounds
-// it: latency, a chain of 128 column steps and 128 row steps with two CTA
-// barriers each per 128 block (~0.27 ms at B = 128 on an H100 80GB HBM3 at
-// 700 W, PERF.md); the later redesign is K6's routine, chol_inv_block_fast.
+// K4: one CTA, left-looking over 128-wide panels (chol_block.cuh,
+// chol_inv_block_fast): each 128 x 128 diagonal block factored and inverted
+// in shared memory by chol_inv_128_fast (32 x 32 pieces by one warp in
+// registers, 14 CTA barriers a step; the TPU's nilpotent doubling diverges
+// on real Gram factors), the TRSM as a product with that inverse, the
+// trailing matrix in a global workspace, the block-wise inverse assembly.
+// The same routine is the diagonal step of K6 and K7. What bounds it:
+// latency, 4 x 32 dependent pivots per 128 block; the optional stamps
+// (K4_STAMPS slots of %globaltimer) say where the time of a 128 block goes
+// (PERF.md).
 //
 // K5 replaces a single-CTA kernel (3.03 ms at B = 512, PERF.md): a 512^2
 // f32 block is 1 MiB, beyond one CTA's 227 KB of shared memory, so that
@@ -62,6 +63,7 @@
 #include <cooperative_groups.h>
 
 #include "chol_block.cuh"
+#include "kernel_attrs.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -89,10 +91,13 @@ size_t k5_smem_bytes(int B, int C) {
          sizeof(float);
 }
 
-__global__ void __launch_bounds__(THREADS)
-chol_inv_kernel(const float* A, int lda, int B, float* L, float* Li, float* W) {
+// One CTA a launch: the register limit is the CTA's whole budget (without
+// the minimum of 1 the compiler capped the routine at 128 and spilled).
+__global__ void __launch_bounds__(THREADS, 1)
+chol_inv_kernel(const float* A, int lda, int B, float* L, float* Li, float* W,
+                long long* stamps) {
   extern __shared__ __align__(16) float smem[];
-  chol_inv_block(A, lda, B, L, Li, W, smem);
+  chol_inv_block_fast(A, lda, B, L, Li, W, smem, stamps);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -216,13 +221,19 @@ int set_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace
 
+// K4. stamps: K4_STAMPS int64 slots for the phase stamps, or nullptr.
 extern "C" int chol_inv_block_f32(const float* A, int lda, int B, float* L, float* Li, float* W,
-                                  cudaStream_t stream) {
+                                  long long* stamps, cudaStream_t stream) {
   if (B <= 0 || B % SUB || B > MAX_B || lda < B || (B > SUB && W == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t bytes = CHOL_INV_SMEM_FLOATS * sizeof(float);
-  if (int err = set_smem(chol_inv_kernel, bytes)) return err;
-  chol_inv_kernel<<<1, THREADS, bytes, stream>>>(A, lda, B, L, Li, W);
+  // The attribute is a host call of tens of microseconds: set once.
+  static bool smem_set = false;
+  if (!smem_set) {
+    if (int err = set_smem(chol_inv_kernel, bytes)) return err;
+    smem_set = true;
+  }
+  chol_inv_kernel<<<1, THREADS, bytes, stream>>>(A, lda, B, L, Li, W, stamps);
   return (int)cudaGetLastError();
 }
 
@@ -265,4 +276,15 @@ extern "C" int chol_block_f32(const float* A, int lda, int B, float* L, int clus
   }
   if (int err = (int)cudaLaunchKernelEx(&config, chol_cluster_kernel, A, lda, B, L)) return err;
   return (int)cudaGetLastError();
+}
+
+// Kernel `which` (0: K4, 1: K5) for chip_smoke.py: its name into *name, its
+// registers, local and static shared bytes into attrs[0..2]; -1 past the
+// last kernel.
+extern "C" int kernel_attrs(int which, const char** name, int* attrs) {
+  switch (which) {
+    case 0: *name = "chol_inv_kernel"; return func_attrs(chol_inv_kernel, attrs);
+    case 1: *name = "chol_cluster_kernel"; return func_attrs(chol_cluster_kernel, attrs);
+    default: return -1;
+  }
 }

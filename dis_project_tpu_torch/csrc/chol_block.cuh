@@ -11,17 +11,15 @@
 // reads are plain (non-const, non-restrict) pointers, so loads never take
 // the read-only path.
 //
-// Two routines give L and L^{-1} of a diagonal block, B a multiple of 128
-// up to 512, left-looking over 128-wide steps:
-//   chol_inv_block (K4's, and K7's diagonal tiles): each 128 step by
-//     block_chol_shared + invert_lower_shared, ~512 CTA barriers and a
-//     handful of FMAs per thread between two of them; 0.27 ms at B = 128 on
-//     an H100 80GB HBM3 at 700 W (PERF.md), latency-bound.
-//   chol_inv_block_fast (K6's diagonal tiles): each 128 step by
-//     chol_inv_128_fast, 14 CTA barriers: the 32 x 32 pieces factored and
-//     inverted by one warp in registers (shuffles, no barrier), the inverse
-//     beside the panel's substitution and update by the other 7 warps. Still latency-bound (the pieces are
-//     a chain of 4 x 32 dependent pivots); PERF.md has its time.
+// chol_inv_block_fast gives L and L^{-1} of a diagonal block, B a multiple
+// of 128 up to 512, left-looking over 128-wide steps, each step
+// chol_inv_128_fast: one warp factors each 32 x 32 piece in registers
+// (shuffles, no barrier), another inverts it, and six warps solve and
+// update the panel below it and carry the inverse along; named barriers
+// hand the pieces over. It is K4's body (chol_block.cu) and the diagonal
+// routine of K6 and K7 (chol_fused.cu). Latency-bound: a chain of 4 x 32
+// dependent pivots, each panel's solve and update between them; PERF.md
+// has its time and its phases (the optional stamps).
 //
 // Arithmetic is plain FP32 (FMA) throughout: no TF32, no bf16. A single-pass
 // low-precision product NaN'd the factorisation of a real SIMM Gram on the
@@ -38,80 +36,13 @@ constexpr int WARPS = THREADS / 32;
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
 
-// In-place lower Cholesky of the m x w panel P (m >= w, leading dimension
-// ld) in shared memory: rows [0, w) hold the diagonal block, rows [w, m) the
-// rows below it, which come out as the panel of L below the diagonal block.
-// The unblocked right-looking Cholesky in LAPACK's order: column j is
-// scaled by its pivot's square root (one rounding, as potf2), then the
-// trailing part of the panel takes the rank-1 update l_i l_k (one FMA);
-// two barriers per column. A non-positive pivot writes NaN, so a non-PD
-// block gives a NaN factor. Only entries on and below the diagonal are read
-// or written.
-__device__ void panel_chol_shared(float* P, int ld, int m, int w) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  for (int j = 0; j < w; ++j) {
-    const float d = P[j * ld + j] > 0.f ? sqrtf(P[j * ld + j]) : quiet_nan();
-    for (int i = j + 1 + threadIdx.x; i < m; i += THREADS) P[i * ld + j] /= d;
-    __syncthreads();
-    if (threadIdx.x == 0) P[j * ld + j] = d;  // every thread has read the pivot
-    for (int i = j + 1 + ty; i < m; i += WARPS) {
-      const float lij = P[i * ld + j];
-      const int kmax = min(i, w - 1);
-      for (int k = j + 1 + tx; k <= kmax; k += 32) {
-        P[i * ld + k] = fmaf(-lij, P[k * ld + j], P[i * ld + k]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// In-place lower Cholesky of the n x n block D in shared memory, blocked
-// right-looking over PW-wide panels: each panel by panel_chol_shared, then
-// the trailing lower triangle takes the panel's rank-PW update, each entry's
-// PW products summed in a register and subtracted once. Against n rank-1
-// updates in place (panel_chol_shared on the whole block) this rounds each
-// entry n/PW times instead of n.
-constexpr int PW = 32;
-
-__device__ void block_chol_shared(float* D, int ld, int n) {
-  for (int off = 0; off < n; off += PW) {
-    const int w = min(PW, n - off);
-    panel_chol_shared(D + off * ld + off, ld, n - off, w);
-    const int t0 = off + w;
-    for (int i = t0 + (threadIdx.x >> 5); i < n; i += WARPS) {
-      for (int k = t0 + (threadIdx.x & 31); k <= i; k += 32) {
-        float acc = 0.f;
-        for (int t = off; t < t0; ++t) acc = fmaf(D[i * ld + t], D[k * ld + t], acc);
-        D[i * ld + k] -= acc;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// X = L^{-1} for the n x n lower-triangular L in shared memory (leading
-// dimensions ldl, ldx), by forward substitution against the identity, row
-// by row: row k is divided by L[k][k] (now final), then every row i > k
-// subtracts L[i][k] X[k][:] (one FMA). Zeros above the diagonal. This is
-// the stable route; the TPU kernel's nilpotent doubling diverges on real
-// Gram factors beyond the 128 scale.
-__device__ void invert_lower_shared(const float* L, int ldl, float* X, int ldx, int n) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  for (int i = ty; i < n; i += WARPS)
-    for (int c = tx; c < n; c += 32) X[i * ldx + c] = (i == c) ? 1.f : 0.f;
-  __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    const float lkk = L[k * ldl + k];
-    for (int c = threadIdx.x; c <= k; c += THREADS) X[k * ldx + c] /= lkk;
-    __syncthreads();
-    for (int i = k + 1 + ty; i < n; i += WARPS) {
-      const float lik = L[i * ldl + k];
-      for (int c = tx; c <= k; c += 32) X[i * ldx + c] = fmaf(-lik, X[k * ldx + c], X[i * ldx + c]);
-    }
-    __syncthreads();
-  }
+// The card's %globaltimer, in ns (what the kernels' stamps record). The
+// "memory" clobber keeps the compiler from moving the read across memory
+// accesses; a stamp after a barrier needs more (bar_count).
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
+  return t;
 }
 
 // CTA-wide product in global memory:
@@ -197,25 +128,32 @@ __device__ void cta_gemm(int M, int N, int K, float alpha, const float* A, int l
   __syncthreads();
 }
 
-// Zero every entry strictly above the diagonal of the n x n row-major M.
-__device__ void zero_upper(float* M, int n) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  for (int i = ty; i < n; i += WARPS)
-    for (int j = i + 1 + tx; j < n; j += 32) M[(size_t)i * n + j] = 0.f;
-}
-
 // ---------------------------------------------------------------------------
 // One warp, 32 x 32, in registers (no CTA barrier). Lane i holds row i.
 // ---------------------------------------------------------------------------
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+// 1/sqrt(x) and 1/x from the hardware estimates (MUFU.RSQ, MUFU.RCP) and
+// one Newton step each, within about an ulp, branch-free. On the chains of
+// the one-warp routines they replace IEEE square roots and divisions, each
+// a refinement with a slow-path branch and a convergence barrier
+// (BSSY/BSYNC) in the SASS. rsqrt_pivot gives NaN for x <= 0.
+__device__ __forceinline__ float rsqrt_pivot(float x) {
+  const float r = rsqrtf(x);
+  const float r1 = fmaf(0.5f * r, fmaf(-x * r, r, 1.f), r);
+  return x > 0.f ? r1 : quiet_nan();
+}
+__device__ __forceinline__ float rcp_newton(float d) {
+  const float r = __fdividef(1.f, d);
+  return fmaf(r, fmaf(-d, r, 1.f), r);
+}
+
 // In-place lower Cholesky of the 32 x 32 block at P (leading dimension
-// ld), by one whole warp, lane i holding row i in registers: the order and
-// arithmetic of panel_chol_shared (column k scaled by its pivot's square
-// root, then the rank-1 update l_i l_j, one FMA), the column broadcast by
-// shuffles. Only entries on and below the diagonal are read or written; a
+// ld), by one whole warp, lane i holding row i in registers: LAPACK's
+// unblocked order (column k scaled by the reciprocal of its pivot's square
+// root, rsqrt_pivot, then the rank-1 update l_i l_j, one FMA), the column
+// broadcast by shuffles. Only entries on and below the diagonal are read or written; a
 // non-positive pivot gives NaN. Every lane runs every update, also on the
 // registers above its diagonal, which come out as junk and are never
 // stored: a lane-dependent condition on each update compiles into a
@@ -226,15 +164,22 @@ __device__ void warp_chol32(float* P, int ld) {
   float a[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) a[j] = j <= lane ? P[lane * ld + j] : 0.f;
+  float piv = __shfl_sync(FULL_MASK, a[0], 0);
 #pragma unroll
   for (int k = 0; k < 32; ++k) {
-    const float piv = __shfl_sync(FULL_MASK, a[k], k);
-    const float d = piv > 0.f ? sqrtf(piv) : quiet_nan();
-    const float q = a[k] / d;
-    a[k] = lane == k ? d : q;
+    const float r = rsqrt_pivot(piv);
+    const float q = a[k] * r;
+    a[k] = lane == k ? piv * r : q;
     float lj[32];
 #pragma unroll
     for (int j = k + 1; j < 32; ++j) lj[j] = __shfl_sync(FULL_MASK, a[k], j);
+    if (k + 1 < 32) {
+      // The next pivot, on every lane, with lane k+1's own update of it
+      // (the same FMA on the same operands): one shuffle fewer on the
+      // chain of pivots than shuffling the updated value.
+      const float next = __shfl_sync(FULL_MASK, a[k + 1], k + 1);
+      piv = fmaf(-lj[k + 1], lj[k + 1], next);
+    }
 #pragma unroll
     for (int j = k + 1; j < 32; ++j) a[j] = fmaf(-a[k], lj[j], a[j]);
   }
@@ -243,67 +188,70 @@ __device__ void warp_chol32(float* P, int ld) {
     if (j <= lane) P[lane * ld + j] = a[j];
 }
 
-// The inverse X = L^{-1} of the lower-triangular 32 x 32 factor at P
-// (leading dimension ld), from the factor in registers, by substitution in
-// the order of invert_lower_shared: row k of X is scaled by 1 / L[k][k],
-// then every row i > k subtracts L[i][k] X[k][:] (one FMA; the rows i <= k
-// take a zero multiplier, which leaves them exact). X's strictly lower part
-// goes TRANSPOSED into P's strictly upper part (X[i][c] at P[c * ld + i]),
-// its diagonal to xd[0..31]. Called by one whole warp; reads only P's lower
-// triangle, writes only its strict upper one.
-__device__ void warp_inv32(float* P, int ld, float* xd) {
-  const int lane = threadIdx.x & 31;
-  float a[32], x[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    a[j] = j <= lane ? P[lane * ld + j] : 0.f;
-    x[j] = j == lane ? 1.f : 0.f;
-  }
-#pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    const float rk = 1.f / __shfl_sync(FULL_MASK, a[k], k);
-    float xk[32];
-#pragma unroll
-    for (int c = 0; c <= k; ++c) {
-      x[c] = lane == k ? x[c] * rk : x[c];
-      xk[c] = __shfl_sync(FULL_MASK, x[c], k);
-    }
-    const float m = lane > k ? a[k] : 0.f;
-#pragma unroll
-    for (int c = 0; c <= k; ++c) x[c] = fmaf(-m, xk[c], x[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < 32; ++c) {
-    if (c < lane) P[c * ld + lane] = x[c];
-    if (c == lane) xd[lane] = x[c];
-  }
-}
-
-// x L^T = row for the 32 entries of one row (in place), by substitution
-// against the 32 x 32 lower factor at D (leading dimension ldd). The row,
-// and each row of D, are loaded before the FMA chain that uses them.
-__device__ __forceinline__ void trsm_row32(float* row, const float* D, int ldd) {
-  float x[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) x[j] = row[j];
+// x L^T = x in place, for the 32 values of one row held in registers, by
+// substitution against the 32 x 32 lower factor at D (leading dimension
+// ldd). Each row of D and the reciprocal of its diagonal entry
+// (rcp_newton) are loaded or formed before the FMA chain that uses them
+// (D is the same for every lane: broadcast loads); each dot product runs as
+// two interleaved chains, which halves the chain on the critical path.
+__device__ __forceinline__ void solve_row32(float x[32], const float* D, int ldd) {
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     float dj[32];
 #pragma unroll
-    for (int t = 0; t <= j; ++t) dj[t] = D[j * ldd + t];
-    float s = x[j];
+    for (int t = 0; t < j; ++t) dj[t] = D[j * ldd + t];
+    const float rdj = rcp_newton(D[j * ldd + j]);
+    float s0 = x[j], s1 = 0.f;
 #pragma unroll
-    for (int t = 0; t < j; ++t) s = fmaf(-x[t], dj[t], s);
-    x[j] = s / dj[j];
+    for (int t = 0; t < j; ++t) {
+      if (t % 2 == 0) s0 = fmaf(-x[t], dj[t], s0);
+      else s1 = fmaf(-x[t], dj[t], s1);
+    }
+    x[j] = (s0 + s1) * rdj;
   }
+}
+
+// x L^T = row for the 32 entries of one row (in place), one thread.
+__device__ __forceinline__ void trsm_row32(float* row, const float* D, int ldd) {
+  float x[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) x[j] = row[j];
+  solve_row32(x, D, ldd);
 #pragma unroll
   for (int j = 0; j < 32; ++j) row[j] = x[j];
 }
 
-// A barrier of warps 1..WARPS-1 only (named barrier 1), while warp 0 works
-// on its own.
-__device__ __forceinline__ void sync_rest() {
-  asm volatile("bar.sync 1, %0;" ::"n"(THREADS - 32) : "memory");
+// The inverse X = L^{-1} of the lower-triangular 32 x 32 factor at P
+// (leading dimension ld), by one whole warp: lane c solves
+// e_c L^{-T}, which is column c of X, by the substitution of trsm_row32
+// (its entries above the diagonal come out as exact zeros). X's strictly
+// lower part goes TRANSPOSED into P's strictly upper part (X[i][c] at
+// P[c * ld + i]: lane c writes row c), its diagonal to xd[0..31]. Reads
+// only P's lower triangle, writes only its strict upper one.
+__device__ void warp_inv32(float* P, int ld, float* xd) {
+  const int lane = threadIdx.x & 31;
+  float x[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) x[j] = j == lane ? 1.f : 0.f;
+  solve_row32(x, P, ld);
+  float d = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (j > lane) P[lane * ld + j] = x[j];
+    d = j == lane ? x[j] : d;
+  }
+  xd[lane] = d;
+}
+
+// Named barriers (id 0 is __syncthreads): bar_sync waits until `count`
+// threads (whole warps) have arrived, bar_arrive counts this warp without
+// waiting; prior shared-memory writes of the arriving threads are visible
+// to the waiting ones when the barrier completes.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -312,41 +260,187 @@ __device__ __forceinline__ void sync_rest() {
 
 constexpr int SUB = 128;
 constexpr int SLD = SUB + 1;
-constexpr int CHOL_INV_SMEM_FLOATS = 2 * SUB * SLD + GEMM_SMEM_FLOATS;
+
+// Phase stamps of chol_inv_block_fast (stamps != nullptr; thread 0 writes
+// %globaltimer after the barrier that ends each phase of the first 128
+// step): entry, block loaded, each of the four 32-wide steps, the
+// block-wise inverse assembled, L and L^{-1} stored.
+constexpr int K4_STAMPS = 8;
 
 // The 128 step of chol_inv_block_fast, in shared memory. F (SUB x SLD)
-// holds the block's lower triangle; on return it holds L on and below the
-// diagonal and L^{-1} TRANSPOSED strictly above it (X[i][j], j < i, at
-// F[j * SLD + i]), and xd the diagonal of L^{-1}. Right-looking over
-// 32-wide panels: the 32 x 32 diagonal piece factored by warp 0 in
-// registers (warp_chol32); then, at once, warp 0 inverts it (warp_inv32)
-// while warps 1..7 solve the panel below it by substitution and apply the
-// rank-32 trailing update (register-summed, 4 x 4 per thread); then the
-// inverse assembled block-wise,
-//   X[p, :p] = -X[p, p] (L[p, :p] X[:p, :p]),   p = 1..3 (32-blocks),
-// the inner product staged in T (32 x FAST_TLD). 14 CTA barriers and 3
-// barriers of warps 1..7 in all, against ~512 in block_chol_shared +
-// invert_lower_shared.
-constexpr int FAST_TLD = 3 * 32 + 1;
-static_assert(WARPS * 4 == 32, "the inverse assembly gives each warp 4 rows of a 32-row block");
-constexpr int FAST_T_FLOATS = 32 * FAST_TLD;
+// holds the block's lower triangle (its strict upper part may hold
+// anything); on return it holds L on and below the diagonal and X = L^{-1}
+// TRANSPOSED strictly above it (X[i][j], j < i, at F[j * SLD + i]), and xd
+// the diagonal of X. Right-looking over 32-wide panels p = 0..3, the warps
+// split three ways:
+//   warp 0 factors each 32 x 32 diagonal piece in registers (warp_chol32),
+//     the chain of the step: piece p+1 as soon as panel p's update is done;
+//   warp 7 inverts each piece (warp_inv32) once it is factored, off the
+//     chain;
+//   warps 1..6 (the solvers) solve the panel below piece p by substitution
+//     (one row per thread), apply its rank-32 update to the trailing lower
+//     triangle (register-summed, 4 x 4 per thread), and then, while warp 0
+//     factors the next piece, carry the inverse one block row further: X
+//     is formed by the same right-looking forward substitution,
+//       X[p, :p]  = X[p, p] P[p, :p]                       (inv_finish)
+//       P[i, :p+1] -= L[i, p] X[p, :p+1],  i > p            (inv_update)
+//     with P (the partial rows, X's place in F) summed per 32-block in
+//     registers and subtracted once, as the factor's updates are.
+// Named barriers hand each piece over. After one CTA barrier only
+// X[3, :3] = X[3, 3] P[3, :3] is left, for all 8 warps. stamps (or
+// nullptr): slots 2..6 of K4_STAMPS, each step's end as warp 0 sees it
+// (step 3: every warp done) and the last block row of X.
+static_assert(WARPS == 8, "the 128 step splits 8 warps 1 + 6 + 1");
+constexpr int SOLVERS = WARPS - 2;  // warps 1..6
+constexpr int INV_WARP = WARPS - 1;
+constexpr int BAR_SOLVERS = 1;      // warps 1..6 among themselves
+constexpr int BAR_PIECE = 2;        // warp 0 arrives, 1..6 wait: piece factored
+constexpr int BAR_UPDATED = 3;      // warps 0..6: trailing update done (a count)
+constexpr int BAR_TO_INV = 4;       // + p (4..7): warp 0 arrives, warp 7 waits: piece p factored
+constexpr int BAR_INVERTED = 8;     // + p (8..10): warp 7 arrives, 1..6 wait: piece p inverted
+constexpr int CHAIN_COUNT = 32 * (SOLVERS + 1);
 
-__device__ void chol_inv_128_fast(float* F, float* xd, float* T) {
-  const int tid = threadIdx.x;
-  for (int off = 0; off < SUB; off += 32) {
-    if (tid < 32) warp_chol32(F + off * SLD + off, SLD);
-    __syncthreads();
-    if (tid < 32) {  // warp 0: the piece's inverse, off the critical path
-      warp_inv32(F + off * SLD + off, SLD, xd + off);
-    } else if (off + 32 < SUB) {
-      // Warps 1..7: the panel below the piece by substitution (one row per
-      // thread), then the trailing update of the lower triangle of rows and
-      // columns [off+32, SUB), 4 x 4 per thread, register-summed.
-      const int t0 = off + 32, m = SUB - t0, rt = tid - 32;
+// A barrier's wait is deferred (BAR.SYNC.DEFER_BLOCKING in the SASS): a
+// timer read right after bar.sync measured the time the warp ARRIVED, not
+// the time the barrier completed (checked against clock64 on an H100). The
+// stamps therefore follow barriers that return a count (bar.red.popc): the
+// read depends on the count, which exists only once every thread has
+// arrived.
+__device__ __forceinline__ int bar_count(int id, int count) {
+  int n;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %3, 0;\n\t"
+      "bar.red.popc.u32 %0, %1, %2, p;\n\t}"
+      : "=r"(n)
+      : "r"(id), "r"(count), "r"(1)
+      : "memory");
+  return n;
+}
+
+// Thread 0 stamps `slot` (stamps may be nullptr); `arrived` is a barrier
+// count, which orders the read after the barrier.
+__device__ __forceinline__ void stamp(long long* stamps, int slot, int arrived = 1) {
+  if (stamps != nullptr && threadIdx.x == 0 && arrived > 0) stamps[slot] = global_ns();
+}
+
+// __syncthreads, then stamp `slot` once every thread has arrived.
+__device__ __forceinline__ void sync_stamp(long long* stamps, int slot) {
+  stamp(stamps, slot, __syncthreads_count(1));
+}
+
+// X[t][c] (t, c < SUB) as chol_inv_128_fast keeps it: transposed above the
+// diagonal, xdc = xd[c] on it, zero below it (where F holds L). xdc is
+// loaded by the caller ahead of its loop: a load behind the condition
+// compiles into a branch (and a convergence barrier) per entry.
+__device__ __forceinline__ float x_at(const float* F, float xdc, int t, int c) {
+  const float v = F[c * SLD + t];
+  return t > c ? v : (t == c ? xdc : 0.f);
+}
+
+// The inverse's two updates work on 32 x 16 tiles, one per warp at a time:
+// lane l holds a 4 x 4 block, rows 4 (l % 8).., columns 4 (l / 8)..; each
+// step of the sum loads 4 values of each operand (lanes that share them
+// read one broadcast address; the others hit distinct banks) for 16 FMAs.
+
+// P[i][c] -= sum_{t in block q} L[i][t] X[t][c] for the rows i of the blocks
+// below q and the columns c < 32 (q + 1); the columns of block q start from
+// zero. Warp w of `nwarps` (warp-uniform) takes every nwarps-th tile.
+__device__ void inv_update(float* F, const float* xd, int q, int w, int nwarps) {
+  const int lane = threadIdx.x & 31, off = 32 * q, t0 = off + 32;
+  const int tiles_c = t0 / 16, tiles = (SUB - t0) / 32 * tiles_c;
+  for (int tile = w; tile < tiles; tile += nwarps) {
+    const int i0 = t0 + 32 * (tile / tiles_c) + 4 * (lane % 8);
+    const int c0 = 16 * (tile % tiles_c) + 4 * (lane / 8);
+    float xdc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) xdc[j] = xd[c0 + j];
+    float acc[4][4] = {};
+#pragma unroll 8
+    for (int t = off; t < t0; ++t) {
+      float lv[4], xv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lv[i] = F[(i0 + i) * SLD + t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xv[j] = x_at(F, xdc[j], t, c0 + j);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(lv[i], xv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* x = F + (c0 + j) * SLD + i0 + i;
+        *x = (c0 + j < off ? *x : 0.f) - acc[i][j];
+      }
+  }
+}
+
+// X[q, :q] = X[q, q] P[q, :q] in place (q >= 1), each entry one FMA chain
+// over k in ascending order (the terms above X[q, q]'s diagonal exact
+// zeros). Warp w of `nwarps` takes every nwarps-th tile of 16 columns.
+__device__ void inv_finish(float* F, const float* xd, int q, int w, int nwarps) {
+  const int lane = threadIdx.x & 31, off = 32 * q, r0 = 4 * (lane % 8);
+  float xdr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xdr[i] = xd[off + r0 + i];
+  for (int tile = w; tile < off / 16; tile += nwarps) {
+    const int c0 = 16 * tile + 4 * (lane / 8);
+    float out[4][4] = {};
+#pragma unroll 8
+    for (int k = 0; k < 32; ++k) {
+      float xr[4], pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xr[i] = x_at(F, xdr[i], off + r0 + i, off + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pv[j] = F[(c0 + j) * SLD + off + k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out[i][j] = fmaf(xr[i], pv[j], out[i][j]);
+    }
+    __syncwarp();  // the warp has read its 16 columns of P
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) F[(c0 + j) * SLD + off + r0 + i] = out[i][j];
+  }
+}
+
+__device__ void chol_inv_128_fast(float* F, float* xd, long long* stamps) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  if (warp == 0) {
+    for (int p = 0; p < 4; ++p) {
+      if (p > 0) stamp(stamps, 1 + p, bar_count(BAR_UPDATED, CHAIN_COUNT));
+      warp_chol32(F + 32 * p * SLD + 32 * p, SLD);
+      bar_arrive(BAR_TO_INV + p, 64);
+      if (p < 3) bar_arrive(BAR_PIECE, CHAIN_COUNT);
+    }
+  } else if (warp == INV_WARP) {
+    for (int p = 0; p < 4; ++p) {
+      bar_sync(BAR_TO_INV + p, 64);
+      warp_inv32(F + 32 * p * SLD + 32 * p, SLD, xd + 32 * p);
+      if (p < 3) bar_arrive(BAR_INVERTED + p, CHAIN_COUNT);
+    }
+  } else {
+    const int rt = tid - 32, sw = warp - 1;
+    // The inverse's block row q, once piece q is inverted and panel q solved.
+    auto inverse_step = [&](int q) {
+      bar_sync(BAR_INVERTED + q, CHAIN_COUNT);
+      if (q > 0) {
+        inv_finish(F, xd, q, sw, SOLVERS);
+        bar_sync(BAR_SOLVERS, 32 * SOLVERS);
+      }
+      inv_update(F, xd, q, sw, SOLVERS);
+    };
+    for (int p = 0; p < 3; ++p) {
+      const int off = 32 * p, t0 = off + 32, m = SUB - t0;
+      bar_sync(BAR_PIECE, CHAIN_COUNT);
       if (rt < m) trsm_row32(F + (t0 + rt) * SLD + off, F + off * SLD + off, SLD);
-      sync_rest();
+      bar_sync(BAR_SOLVERS, 32 * SOLVERS);
       const int mt = m / 4, ntiles = mt * (mt + 1) / 2;
-      for (int s = rt; s < ntiles; s += THREADS - 32) {
+      for (int s = rt; s < ntiles; s += 32 * SOLVERS) {
         int ti = (int)((sqrtf(8.f * s + 1.f) - 1.f) * 0.5f);
         while (ti * (ti + 1) / 2 > s) --ti;
         while ((ti + 1) * (ti + 2) / 2 <= s) ++ti;
@@ -369,125 +463,80 @@ __device__ void chol_inv_128_fast(float* F, float* xd, float* T) {
           for (int c = 0; c < 4; ++c)
             if (k0 + c <= i0 + r) F[(i0 + r) * SLD + k0 + c] -= acc[r][c];
       }
+      bar_count(BAR_UPDATED, CHAIN_COUNT);  // warp 0 is there already
+      inverse_step(p);                      // while warp 0 factors the next piece
     }
-    __syncthreads();
   }
-  // The block-wise inverse, register-tiled: warp w takes rows 4w..4w+3 of
-  // the block row, lane l the columns l, l + 32, l + 64 (up to off). Loop
-  // bounds are the same for every lane, and the structural zeros are
-  // selected in (a per-lane trip count diverges); each entry is one FMA
-  // chain in ascending order, its first terms exact zeros.
-  const int r0 = (tid >> 5) * 4, c0 = tid & 31;
-  for (int off = 32; off < SUB; off += 32) {
-    // T[r][c] = sum_{c <= t < off} L[off + r][t] X[t][c]
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      if (32 * j >= off) break;
-      const int c = c0 + 32 * j;
-      const float xcc = xd[c];
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int t = 32 * j; t < off; ++t) {
-        const float xv = F[c * SLD + t];  // X[t][c] for t > c
-        const float x = t > c ? xv : (t == c ? xcc : 0.f);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] = fmaf(F[(off + r0 + q) * SLD + t], x, acc[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) T[(r0 + q) * FAST_TLD + c] = acc[q];
-    }
-    __syncthreads();
-    // X[off + r][c] = -sum_{u <= r} X[off + r][off + u] T[u][c]
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      if (32 * j >= off) break;
-      const int c = c0 + 32 * j;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int u = 0; u < r0 + 4; ++u) {
-        const float tv = T[u * FAST_TLD + c];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = r0 + q;
-          const float xv = F[(off + u) * SLD + off + r];  // X[off + r][off + u] for u < r
-          const float x = u < r ? xv : (u == r ? xd[off + r] : 0.f);
-          acc[q] = fmaf(x, tv, acc[q]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) F[c * SLD + off + r0 + q] = -acc[q];
-    }
-    __syncthreads();
-  }
+  sync_stamp(stamps, 5);
+  inv_finish(F, xd, 3, warp, WARPS);
+  sync_stamp(stamps, 6);
 }
 
-// Shared memory of chol_inv_block_fast: F, xd, and T (which the 128 steps
-// and the cta_gemm staging share).
-constexpr int CHOL_INV_FAST_SMEM_FLOATS =
-    SUB * SLD + SUB + (FAST_T_FLOATS > GEMM_SMEM_FLOATS ? FAST_T_FLOATS : GEMM_SMEM_FLOATS);
+// Shared memory of chol_inv_block_fast: F, xd, and the cta_gemm staging.
+constexpr int CHOL_INV_SMEM_FLOATS = SUB * SLD + SUB + GEMM_SMEM_FLOATS;
 
 // L and L^{-1} of one B x B SPD block (B a multiple of SUB). A: the block
-// (lower triangle read, row stride lda). L, Li: B x B row-major outputs,
-// zeros above the diagonal. W: B x B workspace for the trailing matrix
-// (unused when B == SUB). smem: CHOL_INV_SMEM_FLOATS floats (FAST:
-// CHOL_INV_FAST_SMEM_FLOATS).
+// (lower triangle used; the whole square is read, row stride lda). L, Li:
+// B x B row-major outputs, zeros above the diagonal. W: B x B workspace for
+// the trailing matrix (unused when B == SUB). smem: CHOL_INV_SMEM_FLOATS
+// floats. stamps: K4_STAMPS slots, or nullptr.
 //
 // Left-looking over SUB-wide panels, as the TPU kernel: the SUB x SUB
-// diagonal block is factored and inverted in shared memory, the panel below
-// it is the product with that inverse (the TRSM as a product), the trailing
-// matrix takes the panel's rank-SUB update, and the inverse is assembled
-// block-wise: Li[p, :off] = -dinv (L[p, :off] Li[:off, :off]), the inner
-// product staged in W's finished columns. The 128 step: block_chol_shared
-// and invert_lower_shared (chol_inv_block, K4's routine, ~512 barriers), or
-// chol_inv_128_fast (chol_inv_block_fast, K6's routine, 14 barriers).
-template <bool FAST>
-__device__ void chol_inv_block_impl(const float* A, int lda, int B, float* L, float* Li, float* W,
-                                    float* smem) {
-  float* D = smem;                // factor of the diagonal block
-  float* X = smem + SUB * SLD;    // its inverse (FAST: its diagonal, then T)
-  float* G = FAST ? X + SUB : smem + 2 * SUB * SLD;
-  zero_upper(L, B);
-  zero_upper(Li, B);
+// diagonal block is factored and inverted in shared memory
+// (chol_inv_128_fast), the panel below it is the product with that inverse
+// (the TRSM as a product), the trailing matrix takes the panel's rank-SUB
+// update, and the inverse is assembled block-wise:
+// Li[p, :off] = -dinv (L[p, :off] Li[:off, :off]), the inner product staged
+// in W's finished columns. Each 128 step writes its rows of L and Li from
+// its diagonal block to the right edge, zeros included, so nothing is
+// zero-filled beforehand.
+__device__ void chol_inv_block_fast(const float* A, int lda, int B, float* L, float* Li, float* W,
+                                    float* smem, long long* stamps) {
+  stamp(stamps, 0);
+  float* D = smem;               // factor of the diagonal block
+  float* xd = smem + SUB * SLD;  // the diagonal of its inverse
+  float* G = xd + SUB;           // cta_gemm's staging
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int off = 0; off < B; off += SUB) {
+    long long* st = off == 0 ? stamps : nullptr;
     const float* src = off == 0 ? A : W;
     const int lds = off == 0 ? lda : B;
-    if (FAST) {
-      // All 64 loads of a thread before their stores: src and D are plain
-      // pointers, so the compiler otherwise keeps each load behind the
-      // previous store, one L2 round trip each.
-      const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    {
+      // All 64 loads of a thread before their stores, unconditional (the
+      // square is in bounds; its upper part is never read): src and D are
+      // plain pointers, so the compiler otherwise keeps each load behind
+      // the previous store, one L2 round trip each.
       float v[SUB / WARPS][4];
 #pragma unroll
       for (int s = 0; s < SUB / WARPS; ++s)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = w + WARPS * s, j = lane + 32 * c;
-          v[s][c] = j <= i ? src[(size_t)(off + i) * lds + off + j] : 0.f;
-        }
+        for (int c = 0; c < 4; ++c)
+          v[s][c] = src[(size_t)(off + w + WARPS * s) * lds + off + lane + 32 * c];
 #pragma unroll
       for (int s = 0; s < SUB / WARPS; ++s)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = w + WARPS * s, j = lane + 32 * c;
-          if (j <= i) D[i * SLD + j] = v[s][c];
-        }
-    } else {
-      for (int i = threadIdx.x >> 5; i < SUB; i += WARPS)
-        for (int j = threadIdx.x & 31; j <= i; j += 32)
-          D[i * SLD + j] = src[(size_t)(off + i) * lds + off + j];
+        for (int c = 0; c < 4; ++c) D[(w + WARPS * s) * SLD + lane + 32 * c] = v[s][c];
     }
-    __syncthreads();
-    if (FAST) {
-      chol_inv_128_fast(D, X, G);
-    } else {
-      block_chol_shared(D, SLD, SUB);
-      invert_lower_shared(D, SLD, X, SLD, SUB);
-    }
-    for (int i = threadIdx.x >> 5; i < SUB; i += WARPS)
-      for (int j = threadIdx.x & 31; j <= i; j += 32) {
-        L[(size_t)(off + i) * B + off + j] = D[i * SLD + j];
-        Li[(size_t)(off + i) * B + off + j] =
-            FAST ? (j == i ? X[i] : D[j * SLD + i]) : X[i * SLD + j];
+    sync_stamp(st, 1);
+    chol_inv_128_fast(D, xd, st);
+    // Rows off..off+SUB of L and Li, columns off..B: the diagonal block,
+    // then zeros.
+    // Loads ahead of the selects (a load behind a condition compiles into a
+    // branch per entry).
+    for (int i = w; i < SUB; i += WARPS) {
+      float* Lrow = L + (size_t)(off + i) * B + off;
+      float* Lirow = Li + (size_t)(off + i) * B + off;
+      const float xdi = xd[i];
+#pragma unroll
+      for (int c = 0; c < SUB / 32; ++c) {
+        const int j = lane + 32 * c;
+        const float lv = D[i * SLD + j], xv = D[j * SLD + i];
+        Lrow[j] = j <= i ? lv : 0.f;
+        Lirow[j] = j < i ? xv : (j == i ? xdi : 0.f);
       }
-    __syncthreads();
+      for (int j = SUB + lane; j < B - off; j += 32) Lrow[j] = Lirow[j] = 0.f;
+    }
+    sync_stamp(st, 7);
     const int rest = B - off - SUB;
     float* Lp = L + (size_t)(off + SUB) * B + off;  // panel below the diagonal block
     if (rest > 0) {
@@ -505,18 +554,6 @@ __device__ void chol_inv_block_impl(const float* A, int lda, int B, float* L, fl
                              0, Li + (size_t)off * B, B, G);
     }
   }
-}
-
-// K4's routine (K4, and K7's diagonal tiles).
-__device__ void chol_inv_block(const float* A, int lda, int B, float* L, float* Li, float* W,
-                               float* smem) {
-  chol_inv_block_impl<false>(A, lda, B, L, Li, W, smem);
-}
-
-// K6's routine: the same outputs, 32-blocked 128 steps.
-__device__ void chol_inv_block_fast(const float* A, int lda, int B, float* L, float* Li,
-                                    float* W, float* smem) {
-  chol_inv_block_impl<true>(A, lda, B, L, Li, W, smem);
 }
 
 }  // namespace chol_block

@@ -5,27 +5,34 @@
 //       order, the tiles above the diagonal written as zero tiles
 //       -> fused_chol_kernel
 //   K7  _fused_kernel2  (fused_cholesky2): 1-D grid of the nb(nb+1)/2 active
-//       tiles, each off-diagonal tile also zeroing its mirror tile
+//       tiles in the order of two scalar-prefetched index lists, each
+//       off-diagonal tile also zeroing its mirror tile
 //       -> fused_chol2_kernel
 //
 // Both compute the left-looking tile factorisation of an n x n SPD matrix A
 // (n = nb * B, B a multiple of 128 up to 512), tile (k, i) being rows i,
 // columns k of L, for i >= k:
 //   C = A[i, k] - sum_{j < k} L[i, j] L[k, j]^T
-//   i == k: L[k, k] and Linv_kk from the diagonal routine (K6:
-//           chol_block.cuh::chol_inv_block_fast; K7: chol_inv_block, K4's
-//           routine); Linv_kk goes to a per-column global buffer
+//   i == k: L[k, k] and Linv_kk from the diagonal routine
+//           (chol_block.cuh::chol_inv_block_fast, K4's body); Linv_kk goes
+//           to a per-column global buffer
 //   i >  k: L[i, k] = C Linv_kk^T   (the TRSM as a product, as on the TPU)
 //
 // Order across CTAs. The TPU grid runs in order, so a step may read any tile
 // written by an earlier step. CTAs on the card run in parallel and start in
 // no set order, so each CTA takes an atomic ticket on entry and factors the
 // tile that ticket names: K6 numbers all nb^2 tiles in the TPU grid's order
-// (k major, then i), K7 the active tiles in the TPU's scalar-prefetch order.
-// Every tile that (k, i) reads -- (j, i) and (j, k) for j < k, and (k, k)
-// for i > k -- has a smaller ticket, and so is held by a CTA that is already
-// resident: no CTA waits on one that may never run, so the launch cannot
-// deadlock whatever the number of CTAs per SM. Each finished tile sets a
+// (k major, then i); K7 reads (k, i) from an index table, tiles[ticket],
+// the card's form of the TPU kernel's scalar-prefetched kidx/iidx (a block
+// loads its own indices). The wrapper passes a look-ahead order
+// (ops/cuda_cholesky_fused.py, tile_order), which hands out each
+// diagonal tile and the tiles next to it ahead of far tiles of earlier
+// columns; on the TPU the order is what makes the sequential grid correct,
+// here it is only a schedule. In any order the wrapper builds, every tile
+// that (k, i) reads -- (j, i) and (j, k) for j < k, and (k, k) for i > k --
+// has a smaller ticket, and so is held by a CTA that is already resident:
+// no CTA waits on one that may never run, so the launch cannot deadlock
+// whatever the number of CTAs per SM. Each finished tile sets a
 // ready flag (an int per tile, zeroed by the wrapper before the launch):
 // every thread writes its part and fences, the CTA syncs, one thread stores
 // the flag with release semantics. A reader's thread 0 spins on the flag with
@@ -62,17 +69,19 @@
 // SMs, but column k+1 cannot start its diagonal factorisation before column
 // k's diagonal tile and the tile below it are done: nb dependent diagonal
 // factorisations by one CTA each, plus one correction step and one TRSM per
-// column. Each diagonal tile stamps %globaltimer when it takes its ticket,
-// when it starts its diagonal routine and when it sets its flag (the
-// wrapper's (3, nb) buffer), so the chain is measured, not inferred: with
-// K4's routine (K7) the routine is ~80 % of every link (PERF.md). K6 runs
-// chol_inv_block_fast, whose 32 x 32 pieces are factored and inverted by
-// one warp in registers. It needs 77 KB of shared memory where K4's routine
-// needs 138 KB, but its registers (~200 a thread) hold it to one CTA per
-// SM: capped at 128 so that two fit, it spilled and measured slower
-// (PERF.md). A small B shortens each link and
-// lengthens the chain; the design keeps everything off the chain that can
-// be (the other tiles of a column run their corrections while they wait).
+// column. The chain is measured, not inferred: each diagonal tile k stamps
+// %globaltimer (the wrapper's (5, nb) buffer) when it takes its ticket, when
+// its own corrections j < k-1 are done, when it starts its diagonal routine
+// and when it sets its flag, and the sub-diagonal tile (k-1, k) stamps when
+// it sets its flag; so each link splits into the TRSM below the previous
+// diagonal tile, the diagonal tile's last correction (and any lateness of
+// its earlier ones), and the routine (PERF.md). Both kernels run
+// chol_inv_block_fast (chol_block.cuh), whose 32 x 32 pieces one warp
+// factors and another inverts in registers; its registers (the full 255 a
+// thread) hold the kernels to one CTA per SM: capped at 128 so that two
+// fit, it spilled and measured slower (PERF.md). A small B shortens each link and lengthens the chain;
+// the design keeps everything off the chain that can be (the other tiles
+// of a column run their corrections while they wait).
 //
 // The C entry points launch on the given stream, allocate nothing (the
 // wrapper passes L, the per-column diagonal scratch, the zeroed sync words
@@ -80,6 +89,7 @@
 // error).
 
 #include "chol_block.cuh"
+#include "kernel_attrs.cuh"
 
 namespace {
 
@@ -90,10 +100,9 @@ constexpr int KS = 16;       // k slice
 constexpr int TLD = TS + 4;  // padded shared row: float4 reads stay aligned
 constexpr int MMA_SMEM_FLOATS = 2 * 2 * KS * TLD;
 constexpr int max_floats(int a, int b) { return a > b ? a : b; }
-// Shared memory of each kernel: its diagonal routine's or tile_mma's staging,
-// whichever is larger (they are used one after the other).
-constexpr int SMEM_FLOATS_K6 = max_floats(CHOL_INV_FAST_SMEM_FLOATS, MMA_SMEM_FLOATS);
-constexpr int SMEM_FLOATS_K7 = max_floats(CHOL_INV_SMEM_FLOATS, MMA_SMEM_FLOATS);
+// Shared memory of both kernels: the diagonal routine's or tile_mma's
+// staging, whichever is larger (they are used one after the other).
+constexpr int SMEM_FLOATS = max_floats(CHOL_INV_SMEM_FLOATS, MMA_SMEM_FLOATS);
 constexpr int MAX_B = 512;
 // ~5 s at the H100's SM clock: far above any legitimate wait (a whole
 // factorisation at n = 1e4 takes tens of milliseconds).
@@ -109,12 +118,6 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // Thread (ty, tx) of a 16 x 16 grid holds rows ty*4 + {0..3} and
 // 64 + ty*4 + {0..3}, columns likewise, of a 128 x 128 subtile.
 __device__ __forceinline__ int frag_row(int r) {
@@ -123,13 +126,11 @@ __device__ __forceinline__ int frag_row(int r) {
 __device__ __forceinline__ int frag_col(int h) { return h * 64 + (threadIdx.x % 16) * 4; }
 
 // dst = src - acc on the thread's fragment (src and dst may be the same).
-// BATCH (K6) issues the loads of each half of the fragment before its
-// stores: since src may alias dst, the compiler otherwise keeps every load
-// behind the previous store, one L2 round trip per float4. K7 keeps the
-// one-at-a-time order.
-template <bool BATCH>
+// The loads of each half of the fragment go before its stores: since src
+// may alias dst, the compiler otherwise keeps every load behind the
+// previous store, one L2 round trip per float4.
 __device__ void subtract_frag(float acc[8][8], const float* src, float* dst, size_t ld) {
-  constexpr int GROUP = BATCH ? 8 : 1;  // float4 loads in flight
+  constexpr int GROUP = 8;  // float4 loads in flight
 #pragma unroll
   for (int g = 0; g < 16; g += GROUP) {
     float4 v[GROUP];
@@ -221,15 +222,25 @@ __device__ void tile_mma(float acc[8][8], const float* A, size_t lda, const floa
   }
 }
 
+// Rows of the chain stamps, (CHAIN_ROWS, nb) int64, %globaltimer in ns:
+// diagonal tile k took its ticket, finished its corrections j < k-1, began
+// its diagonal routine, set its ready flag; and the sub-diagonal tile
+// (k-1, k) set its ready flag (0 for k = 0).
+enum ChainRow { TICKET = 0, EARLY_DONE, ROUTINE, FLAG, SUBDIAG_FLAG, CHAIN_ROWS };
+
 struct Matrix {
-  const float* A;  // n x n input
-  float* L;        // n x n output
-  float* diag;     // (nb, 3, B, B): Linv_kk, chol_inv_block's L and its workspace
-  int* sync;       // [ticket counter, error word, nb * nb ready flags]
-  long long* stamps;  // (3, nb): %globaltimer (ns) at which diagonal tile k took its
-                      // ticket, began its diagonal routine, and set its ready flag
+  const float* A;     // n x n input
+  float* L;           // n x n output
+  float* diag;        // (nb, 3, B, B): Linv_kk, the diagonal routine's L and its workspace
+  int* sync;          // [ticket counter, error word, nb * nb ready flags]
+  long long* stamps;  // (CHAIN_ROWS, nb), see ChainRow
+  const int* tiles;   // K7: (nb(nb+1)/2, 2) int32, (k, i) of each ticket
   int n, B, nb;
 };
+
+__device__ __forceinline__ void chain_stamp(const Matrix& m, ChainRow row, int k) {
+  m.stamps[(size_t)row * m.nb + k] = global_ns();
+}
 
 __device__ __forceinline__ int* ready(const Matrix& m, int k, int i) {
   return m.sync + 2 + (size_t)k * m.nb + i;
@@ -262,22 +273,22 @@ __device__ void fill_tile(float* T, size_t ld, int B, float v) {
   }
 }
 
-// Tile (k, i), i >= k: correction, then the diagonal factorisation (FAST:
-// chol_inv_block_fast, else chol_inv_block) or the TRSM, then the ready
-// flag; a diagonal tile also stamps the time it set its flag.
-template <bool FAST>
+// Tile (k, i), i >= k: correction, then the diagonal factorisation
+// (chol_inv_block_fast) or the TRSM, then the ready flag, with the chain
+// stamps of a diagonal tile and of a sub-diagonal one.
 __device__ void factor_tile(const Matrix& m, int k, int i, float* smem, int* gave_up) {
   const size_t n = m.n;
   const int B = m.B, nsub = B / TS;
   const bool on_diag = i == k;
   const size_t tile = (size_t)i * B * n + (size_t)k * B;
-  if (on_diag && threadIdx.x == 0) m.stamps[k] = global_ns();
+  if (on_diag && threadIdx.x == 0) chain_stamp(m, TICKET, k);
   const float* At = m.A + tile;
   float* Lt = m.L + tile;
   float* Linv = m.diag + (size_t)k * 3 * B * B;
 
   float acc[8][8];
   for (int j = 0; j < k; ++j) {
+    if (on_diag && j == k - 1 && threadIdx.x == 0) chain_stamp(m, EARLY_DONE, k);
     wait_ready(m, j, i, gave_up);
     wait_ready(m, j, k, gave_up);
     const float* Lij = m.L + (size_t)i * B * n + (size_t)j * B;
@@ -287,23 +298,25 @@ __device__ void factor_tile(const Matrix& m, int k, int i, float* smem, int* gav
       if (on_diag && c > r) continue;  // the diagonal routine reads the lower part only
       const size_t sub = (size_t)r * TS * n + (size_t)c * TS;
       tile_mma(acc, Lij + (size_t)r * TS * n, n, Lkj + (size_t)c * TS * n, n, B, smem);
-      subtract_frag<FAST>(acc, (j == 0 ? At : Lt) + sub, Lt + sub, n);
+      subtract_frag(acc, (j == 0 ? At : Lt) + sub, Lt + sub, n);
     }
   }
   __threadfence();
-  __syncthreads();
+  // A count-returning barrier, so that the routine's stamp follows every
+  // thread's last correction (see chol_block.cuh, bar_count).
+  const int arrived = __syncthreads_count(1);
   const float* C = k == 0 ? At : Lt;  // the corrected tile
 
   if (on_diag) {
-    if (threadIdx.x == 0) m.stamps[m.nb + k] = global_ns();
+    if (threadIdx.x == 0 && arrived > 0) {
+      if (k == 0) chain_stamp(m, EARLY_DONE, k);
+      chain_stamp(m, ROUTINE, k);
+    }
     float* Lbuf = Linv + (size_t)B * B;
-    if (FAST)
-      chol_inv_block_fast(C, (int)n, B, Lbuf, Linv, Lbuf + (size_t)B * B, smem);
-    else
-      chol_inv_block(C, (int)n, B, Lbuf, Linv, Lbuf + (size_t)B * B, smem);
-    // Zeros above the diagonal too; FAST (K6) with 16 loads in flight
-    // before their stores (see subtract_frag).
-    constexpr int GROUP = FAST ? 16 : 1;
+    chol_inv_block_fast(C, (int)n, B, Lbuf, Linv, Lbuf + (size_t)B * B, smem, nullptr);
+    // Zeros above the diagonal too; 16 loads in flight before their stores
+    // (see subtract_frag).
+    constexpr int GROUP = 16;
     for (int e0 = threadIdx.x; e0 < B * B / 4; e0 += GROUP * THREADS) {
       float4 v[GROUP];
 #pragma unroll
@@ -332,7 +345,8 @@ __device__ void factor_tile(const Matrix& m, int k, int i, float* smem, int* gav
   __syncthreads();
   if (threadIdx.x == 0) {
     st_release(ready(m, k, i), 1);
-    if (on_diag) m.stamps[2 * m.nb + k] = global_ns();
+    if (on_diag) chain_stamp(m, FLAG, k);
+    if (i == k + 1) chain_stamp(m, SUBDIAG_FLAG, i);
   }
 }
 
@@ -354,25 +368,23 @@ __global__ void __launch_bounds__(THREADS) fused_chol_kernel(Matrix m) {
     fill_tile(m.L + (size_t)i * m.B * m.n + (size_t)k * m.B, m.n, m.B, 0.f);
     return;
   }
-  factor_tile<true>(m, k, i, smem, &gave_up);
+  factor_tile(m, k, i, smem, &gave_up);
 }
 
 __global__ void __launch_bounds__(THREADS) fused_chol2_kernel(Matrix m) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int ticket, gave_up;
-  int t = take_ticket(m, &ticket, &gave_up);
-  int k = 0;
-  while (t >= m.nb - k) t -= m.nb - k++;
-  const int i = k + t;
+  const int t = take_ticket(m, &ticket, &gave_up);
+  const int k = __ldg(m.tiles + 2 * t), i = __ldg(m.tiles + 2 * t + 1);
   if (i > k) fill_tile(m.L + (size_t)k * m.B * m.n + (size_t)i * m.B, m.n, m.B, 0.f);
-  factor_tile<false>(m, k, i, smem, &gave_up);
+  factor_tile(m, k, i, smem, &gave_up);
 }
 
 using Kernel = void (*)(Matrix);
 
 // Sets the kernel's dynamic shared memory; returns its size in *bytes.
 int prepare(Kernel kernel, size_t* bytes) {
-  *bytes = (kernel == fused_chol_kernel ? SMEM_FLOATS_K6 : SMEM_FLOATS_K7) * sizeof(float);
+  *bytes = SMEM_FLOATS * sizeof(float);
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)*bytes);
 }
@@ -392,15 +404,18 @@ extern "C" int fused_chol_f32(const float* A, int n, int B, float* L, float* dia
                               long long* stamps, cudaStream_t stream) {
   if (!valid(n, B)) return (int)cudaErrorInvalidValue;
   const int nb = n / B;
-  return launch(fused_chol_kernel, nb * nb, Matrix{A, L, diag, sync, stamps, n, B, nb}, stream);
+  return launch(fused_chol_kernel, nb * nb,
+                Matrix{A, L, diag, sync, stamps, nullptr, n, B, nb}, stream);
 }
 
+// tiles: the (nb(nb+1)/2, 2) int32 order table, a legal order of the active
+// tiles (every tile a tile reads has a smaller ticket).
 extern "C" int fused_chol2_f32(const float* A, int n, int B, float* L, float* diag, int* sync,
-                               long long* stamps, cudaStream_t stream) {
-  if (!valid(n, B)) return (int)cudaErrorInvalidValue;
+                               long long* stamps, const int* tiles, cudaStream_t stream) {
+  if (!valid(n, B) || tiles == nullptr) return (int)cudaErrorInvalidValue;
   const int nb = n / B;
   return launch(fused_chol2_kernel, nb * (nb + 1) / 2,
-                Matrix{A, L, diag, sync, stamps, n, B, nb}, stream);
+                Matrix{A, L, diag, sync, stamps, tiles, n, B, nb}, stream);
 }
 
 // CTAs per SM of K6 (which == 6) or K7 (which == 7) at their shared memory,
@@ -411,4 +426,15 @@ extern "C" int fused_chol_occupancy(int which, int* blocks) {
   size_t bytes;
   if (int err = prepare(kernel, &bytes)) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, bytes);
+}
+
+// Kernel `which` (0: K6, 1: K7) for chip_smoke.py: its name into *name, its
+// registers, local and static shared bytes into attrs[0..2]; -1 past the
+// last kernel.
+extern "C" int kernel_attrs(int which, const char** name, int* attrs) {
+  switch (which) {
+    case 0: *name = "fused_chol_kernel"; return func_attrs(fused_chol_kernel, attrs);
+    case 1: *name = "fused_chol2_kernel"; return func_attrs(fused_chol2_kernel, attrs);
+    default: return -1;
+  }
 }

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int TILE = 32;          // output tile edge
@@ -215,6 +217,19 @@ int simm_gram_sym_f32(const float* meta, int n, const float* ell, float* out, in
 int simm_gram_sym_f64(const double* meta, int n, const double* ell, double* out, int kind,
                       cudaStream_t stream) {
   return launch_sym<double>(meta, n, ell, out, kind, stream);
+}
+
+// Kernel `which` (0..3: K1 f32, K1 f64, K2 f32, K2 f64) for
+// chip_smoke.py: its name into *name, its registers, local and static
+// shared bytes into attrs[0..2]; -1 past the last kernel.
+int kernel_attrs(int which, const char** name, int* attrs) {
+  switch (which) {
+    case 0: *name = "gram_rect_kernel<float>"; return func_attrs(gram_rect_kernel<float>, attrs);
+    case 1: *name = "gram_rect_kernel<double>"; return func_attrs(gram_rect_kernel<double>, attrs);
+    case 2: *name = "gram_sym_kernel<float>"; return func_attrs(gram_sym_kernel<float>, attrs);
+    case 3: *name = "gram_sym_kernel<double>"; return func_attrs(gram_sym_kernel<double>, attrs);
+    default: return -1;
+  }
 }
 
 }  // extern "C"

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int BM = 64;   // output tile edge
@@ -114,4 +116,13 @@ extern "C" int syrk_ltl_tril_f32(const float* Li, int n, float* C, cudaStream_t 
     syrk_ltl_tril_kernel<<<blocks, THREADS, 0, stream>>>(Li, n, C);
   }
   return (int)cudaGetLastError();
+}
+
+// Kernel `which` (0: K3) for chip_smoke.py: its name into *name, its
+// registers, local and static shared bytes into attrs[0..2]; -1 past the
+// last kernel.
+extern "C" int kernel_attrs(int which, const char** name, int* attrs) {
+  if (which != 0) return -1;
+  *name = "syrk_ltl_tril_kernel";
+  return func_attrs(syrk_ltl_tril_kernel, attrs);
 }

@@ -9,6 +9,7 @@ an edited source never loads a stale library. Builds happen at first use;
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+Every source also exports ``kernel_attrs`` (:func:`kernel_attributes`).
 Nothing here runs at import time.
 """
 
@@ -32,6 +33,9 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict = {}  # name -> ctypes.CDLL, per process
+
+# int kernel_attrs(int which, const char** name, int* attrs), in every source.
+_ATTRS_ARGTYPES = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
 
 
 def _nvcc() -> str:
@@ -84,12 +88,28 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for symbol, argtypes in signatures.items():
+        for symbol, argtypes in {**signatures, "kernel_attrs": _ATTRS_ARGTYPES}.items():
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def kernel_attributes(name: str, signatures: dict) -> list:
+    """``cudaFuncGetAttributes`` of every kernel in ``csrc/<name>.cu``:
+    ``[(kernel, registers a thread, local bytes a thread (spills), static
+    shared bytes a CTA), ...]``. Needs the card."""
+    lib = load(name, signatures)
+    out = []
+    attrs = (ctypes.c_int * 3)()
+    kernel = ctypes.c_char_p()
+    while True:
+        code = lib.kernel_attrs(len(out), ctypes.byref(kernel), attrs)
+        if code == -1:
+            return out
+        check(code, f"{name}.kernel_attrs")
+        out.append((kernel.value.decode(), *attrs))
 
 
 def check(code: int, what: str) -> None:

@@ -9,7 +9,9 @@ Port of ``dis_project_tpu/ops/pallas_cholesky.py``. Kernels (``csrc/``):
   lower-triangular float32 ``Li``, over the lower output tiles only.
 - :func:`chol_inv_unblocked` — K4, ``csrc/chol_block.cu::chol_inv_kernel``,
   replacing ``_chol_inv_kernel``: L and L⁻¹ of one (B, B) SPD block,
-  B a multiple of 128 up to 512, float32.
+  B a multiple of 128 up to 512, float32, by the routine K6 and K7 run on
+  their diagonal tiles (``chol_block.cuh::chol_inv_block_fast``); each
+  launch leaves its phase stamps (:func:`k4_phase_stamps`).
 - :func:`chol_unblocked` — K5, ``csrc/chol_block.cu::chol_cluster_kernel``,
   replacing ``_chol_kernel``: L of one (B, B) SPD block, any B up to 512,
   float32, factored by a thread-block cluster of :func:`k5_cluster_size`
@@ -48,8 +50,8 @@ LAUNCHES = {"syrk_ltl_tril": 0, "chol_inv_unblocked": 0, "chol_unblocked": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SYRK_SIGNATURES = {"syrk_ltl_tril_f32": [_P, _I, _P, _P]}
 CHOL_SIGNATURES = {
-    # (A, lda, B, L, Li, W, stream) and (A, lda, B, L, cluster, stream)
-    "chol_inv_block_f32": [_P, _I, _I, _P, _P, _P, _P],
+    # (A, lda, B, L, Li, W, stamps, stream) and (A, lda, B, L, cluster, stream)
+    "chol_inv_block_f32": [_P, _I, _I, _P, _P, _P, _P, _P],
     "chol_block_f32": [_P, _I, _I, _P, _I, _P],
 }
 
@@ -63,6 +65,11 @@ _PALLAS_CHOL_MAX_B = 512
 # float32 factors above this size take K3 and the panel inverses (the JAX
 # package's inv_from_factor threshold: below it the plain product is cheap).
 SYRK_MIN_N = 2048
+# K4's phase stamps (csrc/chol_block.cuh, K4_STAMPS): %globaltimer at entry,
+# block loaded, each 32-wide step of the first 128 block, the inverse
+# assembled, L and L⁻¹ stored.
+K4_PHASES = ("entry", "loaded", "step 0", "step 1", "step 2", "step 3", "assembly", "stored")
+_K4_STAMPS: dict = {}  # device -> int64 buffer, overwritten by every launch
 
 
 # ---------------------------------------------------------------------------
@@ -283,22 +290,46 @@ def _check_block(a, what, multiple):
     return a if a.stride(1) == 1 else a.contiguous()
 
 
-def chol_inv_unblocked_kernel(a):
+def chol_inv_unblocked_kernel(a, out=None):
     """Launch K4 on a CUDA float32 (B, B) SPD block: ``(L, L⁻¹)``, both
-    lower-triangular with zeros above the diagonal."""
+    lower-triangular with zeros above the diagonal. ``out``: an optional
+    pair of contiguous (B, B) float32 tensors on ``a``'s device to write
+    them into (a caller that launches K4 in a loop saves two allocations a
+    call on the host, which then sets the pace)."""
     a = _check_block(a, "chol_inv_unblocked", _SUB)
     B = a.shape[0]
-    L = torch.empty((B, B), dtype=a.dtype, device=a.device)
-    Li = torch.empty_like(L)
+    if out is None:
+        L = torch.empty((B, B), dtype=a.dtype, device=a.device)
+        Li = torch.empty_like(L)
+    else:
+        L, Li = out
+        for t in out:
+            if (t.shape != (B, B) or t.dtype != a.dtype or t.device != a.device
+                    or not t.is_contiguous()):
+                raise ValueError(f"chol_inv_unblocked: out must be two contiguous ({B}, {B}) "
+                                 f"{a.dtype} tensors on {a.device}")
     W = torch.empty_like(L) if B > _SUB else None  # trailing-matrix workspace
+    stamps = _K4_STAMPS.get(a.device)
+    if stamps is None:
+        stamps = _K4_STAMPS[a.device] = torch.zeros(len(K4_PHASES), dtype=torch.int64,
+                                                    device=a.device)
     lib = cuda_build.load("chol_block", CHOL_SIGNATURES)
     with torch.cuda.device(a.device):
         code = lib.chol_inv_block_f32(
             a.data_ptr(), a.stride(0), B, L.data_ptr(), Li.data_ptr(),
-            W.data_ptr() if W is not None else None, cuda_build.stream_handle(a.device))
+            W.data_ptr() if W is not None else None, stamps.data_ptr(),
+            cuda_build.stream_handle(a.device))
     LAUNCHES["chol_inv_unblocked"] += 1
     cuda_build.check(code, "chol_inv_block")
     return L, Li
+
+
+def k4_phase_stamps(device):
+    """K4's phase stamps of the last launch on ``device``: an int64 CUDA
+    tensor, the card's %globaltimer in ns at each point of
+    :data:`K4_PHASES` (the phases of the first 128 block). Reading it waits
+    for the launch to finish."""
+    return _K4_STAMPS[torch.device(device)]
 
 
 def chol_inv_unblocked_plain(a):
@@ -355,7 +386,9 @@ def chol_unblocked(a):
 
 def _warp_chol32_mirror(D):
     """In place, the (w, w) lower block ``D`` (w <= 32) by rank-1 steps in
-    the order of ``warp_chol32``; a non-positive pivot gives NaN."""
+    the order of ``warp_chol32``; a non-positive pivot gives NaN. (The
+    kernel scales each column by a Newton-refined reciprocal square root
+    where this divides by the square root: about an ulp apart per entry.)"""
     for k in range(D.shape[0]):
         piv = D[k, k]
         d = torch.where(piv > 0, piv.clamp(min=0).sqrt(), torch.full_like(piv, float("nan")))
@@ -396,14 +429,19 @@ def _chol_cluster_mirror(a):
 
 def _chol_inv_128_mirror(a):
     """``chol_inv_128_fast``: L and L⁻¹ of a (128, 128) block by
-    :func:`_panels32_mirror` with the pieces' inverses, then the block-wise
-    inverse X[p, :p] = -X[p, p] (L[p, :p] X[:p, :p])."""
+    :func:`_panels32_mirror` with the pieces' inverses, then the inverse by
+    right-looking forward substitution over 32-blocks: X[p, :p] =
+    X[p, p] P[p, :p], then P[i, :p+1] -= L[i, p] X[p, :p+1] for i > p (P the
+    partial rows, each block's product summed and subtracted once)."""
     F = a.tril()
     X = torch.zeros_like(F)
     _panels32_mirror(F, X)
-    for off in range(32, _SUB, 32):
-        T = F[off:off + 32, :off] @ X[:off, :off]
-        X[off:off + 32, :off] = -(X[off:off + 32, off:off + 32] @ T)
+    for off in range(0, _SUB, 32):
+        end = off + 32
+        if off:
+            X[off:end, :off] = X[off:end, off:end] @ X[off:end, :off]
+        if end < _SUB:
+            X[end:, :end] -= F[end:, off:end] @ X[off:end, :end]
     return F, X
 
 
@@ -462,7 +500,7 @@ def blocked_cholesky_t(a, *, block: int | None = None, inner: int = 128, probe_e
 
     The diagonal step: on a CUDA float32 tensor with ``inner`` a multiple
     of 128 up to 512 (and ``kernels`` set), ONE launch of K4
-    (:func:`chol_inv_unblocked`) gives ``lkk`` and its inverse; otherwise
+    (:func:`chol_inv_unblocked_kernel`) gives ``lkk`` and its inverse; otherwise
     (CPU, float64, other ``inner``, or ``kernels=False``) it is
     ``cholesky_ex`` + :func:`tri_inv`, as in the JAX package. These are
     API rules, not fallbacks on failure.
@@ -487,6 +525,13 @@ def blocked_cholesky_t(a, *, block: int | None = None, inner: int = 128, probe_e
     use_k4 = (kernels and Lt.is_cuda and Lt.dtype == torch.float32
               and Bi % _SUB == 0 and Bi <= _PALLAS_CHOL_MAX_B)
     dinvs = []
+    if use_k4:
+        # K4's outputs go into buffers made once: the diagonal inverses'
+        # stack (or one reused inverse) and one reused factor, copied into
+        # Lt at once. With K4 at ~30 us, the host's loop of launches came
+        # within a few percent of the device time (PERF.md).
+        lkk_buf = Lt.new_empty((Bi, Bi))
+        dinv_all = Lt.new_empty((npad // Bi if return_diag_inv else 1, Bi, Bi))
     for off in range(0, npad, Bo):
         P = Lt[off:off + Bo, off:]
         if off:
@@ -496,11 +541,12 @@ def blocked_cholesky_t(a, *, block: int | None = None, inner: int = 128, probe_e
             if io:
                 R.addmm_(P[:io, io:io + Bi].T, P[:io, io:], alpha=-1.0)
             if use_k4:
-                lkk, dinv = chol_inv_unblocked(R[:, :Bi])
+                step = (off + io) // Bi if return_diag_inv else 0
+                lkk, dinv = chol_inv_unblocked_kernel(R[:, :Bi], out=(lkk_buf, dinv_all[step]))
             else:
                 lkk = cholesky_nan(R[:, :Bi])
                 dinv = tri_inv(lkk, base=min(Bi, 256))
-            if return_diag_inv:
+            if return_diag_inv and not use_k4:
                 dinvs.append(dinv)
             if R.shape[1] > Bi:
                 R[:, Bi:] = dinv @ R[:, Bi:]
@@ -508,7 +554,7 @@ def blocked_cholesky_t(a, *, block: int | None = None, inner: int = 128, probe_e
     Lt.triu_()  # the strict lower part still holds a's lower triangle
     Lt = Lt[:n, :n] if npad != n else Lt
     if return_diag_inv:
-        return Lt, torch.stack(dinvs)
+        return Lt, dinv_all if use_k4 else torch.stack(dinvs)
     return Lt
 
 

@@ -21,25 +21,26 @@ Both compute, for each tile (k, i), i >= k, of ``block`` x ``block``::
 The TPU grid runs in order; CTAs on the card do not, so each CTA takes an
 atomic ticket that names its tile (tickets in dependency order) and waits
 on per-tile ready flags before it reads another tile (``csrc/chol_fused.cu``
-says how). Every product is plain FP32: the JAX kernels stage the
-correction operands in bf16 and return NaN on a real SIMM Gram (their own
-warning, ``pallas_cholesky_fused.py:6-14``); the port holds to the
-f32-faithful rule of the rest of the engine and does not copy that.
+says how). K6 numbers its tickets in the TPU grid's order; K7 reads the
+tile of each ticket from an order table, :func:`tile_order` at the private
+look-ahead depth ``_LOOKAHEAD`` (the JAX kernel's order at depth 0), which
+hands each diagonal tile out early, so that its own corrections are done
+by the time the sub-diagonal tile beside it is. Both run the same tile program with the same
+diagonal routine (``chol_block.cuh::chol_inv_block_fast``, K4's body), so
+their factors are equal bitwise, and K7's is the same at every depth.
+Every product is plain FP32: the JAX kernels stage the correction
+operands in bf16 and return NaN on a real SIMM Gram (their own warning,
+``pallas_cholesky_fused.py:6-14``); the port holds to the f32-faithful
+rule of the rest of the engine and does not copy that.
 
 ``block`` on the card: a multiple of 128 up to 512 (what the diagonal
-routines ``chol_block.cuh::chol_inv_block_fast`` (K6) and
-``chol_inv_block`` (K7) take); anything else raises there. The plain
-version takes any block. The defaults (128 for both) are the card's
-choice, not the JAX package's v5e values (512 and 1024): at N = 1e4 on the
-real dense10k Σ, block 128 is the fastest block whose reconstruction
-max|LLᵀ − Σ|/max|Σ| holds 2x cuSOLVER's, for both kernels. Measured by
-``chip_smoke.py``'s ``[K6]``/``[K7]`` block lines on an NVIDIA H100 80GB
-HBM3 at 700 W (PERF.md): K6 17.4 ms at block 128, 25.4 at 256, 63.6
-at 512; K7 23.2, 34.5 and 72.3 (cuSOLVER's ``torch.linalg.cholesky``
-14.1 ms); reconstructions 0.10x-0.27x cuSOLVER's. K6 is faster for its
-diagonal routine alone (109 µs a tile inside the kernel, against 233 µs
-for K7's); its chain of diagonal tiles still sets its pace
-(:func:`chain_stamps`).
+routine takes); anything else raises there. The plain version takes any
+block. The defaults (128 for both) are the card's choice, not the JAX
+package's v5e values (512 and 1024): at N = 1e4 on the real dense10k Σ,
+block 128 is the fastest block whose reconstruction
+max|LLᵀ − Σ|/max|Σ| holds 2x cuSOLVER's, for both kernels
+(``chip_smoke.py``'s ``[K6]``/``[K7]`` block lines, PERF.md). The chain of
+diagonal tiles sets the pace of both (:func:`chain_stamps`).
 
 ``chunk`` grouped the TPU's DMA reads of finished columns; here it only
 sets the padding quantum (the size is identity-padded to a multiple of
@@ -81,7 +82,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 FUSED_SIGNATURES = {
     # (A, n, B, L, diag_scratch, sync, stamps, stream)
     "fused_chol_f32": [_P, _I, _I, _P, _P, _P, _P, _P],
-    "fused_chol2_f32": [_P, _I, _I, _P, _P, _P, _P, _P],
+    # (A, n, B, L, diag_scratch, sync, stamps, order table, stream)
+    "fused_chol2_f32": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
     # (which kernel: 6 or 7, int* CTAs per SM)
     "fused_chol_occupancy": [_I, _P],
 }
@@ -90,6 +92,48 @@ FUSED_SIGNATURES = {
 # nb * nb tile-ready flags]; and its chain stamps (see chain_stamps).
 _LAST_SYNC: dict = {}
 _LAST_STAMPS: dict = {}
+# Rows of the chain stamps (csrc/chol_fused.cu, ChainRow).
+CHAIN_ROWS = ("ticket", "early corrections done", "routine start", "flag", "sub-diagonal flag")
+
+# K7's look-ahead depth (tile_order): the fastest of the depths that
+# chip_smoke.py sweeps at N = 1e4, B = 128 on an H100 (PERF.md).
+_LOOKAHEAD = 3
+_ORDER_TABLES: dict = {}  # (nb, depth, device) -> (tickets, 2) int32 table
+
+
+# ---------------------------------------------------------------------------
+# K7's tile order.
+# ---------------------------------------------------------------------------
+
+
+def tile_order(nb, depth):
+    """K7's ticket order of the nb(nb+1)/2 active tiles (k, i), i >= k,
+    with look-ahead ``depth``: sorted by (min(k, i - depth), k, i). Wave w
+    holds column w's tiles from row w + depth down, then the tiles of row
+    w + depth from column w + 1 to its diagonal: so each diagonal tile, and
+    the ``depth`` tiles left of it in its row, are handed out ``depth``
+    columns early, each right after the far tiles of that earlier column
+    (the tiles that feed them all come earlier). ``depth`` 0 is the JAX
+    kernel's scalar-prefetch order (``kidx``/``iidx``), ``nb - 1`` and
+    above is row order. Every tile that (k, i) reads, (j, i) and (j, k) for
+    j < k and (k, k) for i > k, has a smaller key, so every depth gives a
+    legal order, which cannot deadlock."""
+    if depth < 0:
+        raise ValueError(f"tile_order: depth must be >= 0, got {depth}")
+    tiles = [(k, i) for k in range(nb) for i in range(k, nb)]
+    tiles.sort(key=lambda t: (min(t[0], t[1] - depth), t[0], t[1]))
+    return tiles
+
+
+def _order_table(nb, depth, device):
+    """:func:`tile_order` as a (tickets, 2) int32 tensor on ``device``,
+    built once per (nb, depth, device)."""
+    key = (nb, depth, torch.device(device))
+    table = _ORDER_TABLES.get(key)
+    if table is None:
+        table = torch.tensor(tile_order(nb, depth), dtype=torch.int32, device=device)
+        _ORDER_TABLES[key] = table
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +153,30 @@ def _fused_cholesky_mirror(a, block):
     """K6's blocking (tests only): the tile factorisation with its diagonal
     tiles through the mirror of ``chol_inv_block_fast``."""
     return _tile_factor(a, block, _chol_inv_fast_mirror)
+
+
+def _tile_program_mirror(a, block, order):
+    """K7's tile program (tests only): one tile at a time in the ticket
+    order ``order`` (a list of (k, i)), each as the kernel's CTA runs it:
+    its correction steps j < k in order, each product subtracted from C
+    once, then :func:`~dis_project_tpu_torch.ops.cuda_cholesky._chol_inv_fast_mirror`
+    (the diagonal) or the product with the column's inverse (the TRSM).
+    A tile reads L as it stands, so an order that hands out a tile before
+    one it reads gives another factor. ``a``: (n, n), n a multiple of
+    ``block``."""
+    L = torch.zeros_like(a)
+    linv = {}
+    for k, i in order:
+        rows, cols = slice(i * block, (i + 1) * block), slice(k * block, (k + 1) * block)
+        C = a[rows, cols].clone()
+        for j in range(k):
+            js = slice(j * block, (j + 1) * block)
+            C -= L[rows, js] @ L[cols, js].T
+        if i == k:
+            L[rows, cols], linv[k] = _chol_inv_fast_mirror(C)
+        else:
+            L[rows, cols] = C @ linv.get(k, torch.zeros_like(C)).T
+    return L
 
 
 def _tile_factor(a, block, diag):
@@ -148,7 +216,7 @@ def _check(a, block, what):
         raise ValueError(f"{what}: input must be contiguous (row-major) and 16-byte aligned")
 
 
-def _launch(a, block, what, symbol):
+def _launch(a, block, what, symbol, depth=None):
     _check(a, block, what)
     n = a.shape[0]
     nb = n // block
@@ -157,11 +225,13 @@ def _launch(a, block, what, symbol):
     # tiles), and the diagonal routine's L and trailing workspace.
     diag = torch.empty((nb, 3, block, block), dtype=a.dtype, device=a.device)
     sync = torch.zeros(2 + nb * nb, dtype=torch.int32, device=a.device)
-    stamps = torch.zeros((3, nb), dtype=torch.int64, device=a.device)
+    stamps = torch.zeros((len(CHAIN_ROWS), nb), dtype=torch.int64, device=a.device)
+    # K7 only: its order table.
+    order = () if depth is None else (_order_table(nb, depth, a.device).data_ptr(),)
     lib = cuda_build.load("chol_fused", FUSED_SIGNATURES)
     with torch.cuda.device(a.device):
         code = getattr(lib, symbol)(a.data_ptr(), n, block, L.data_ptr(), diag.data_ptr(),
-                                    sync.data_ptr(), stamps.data_ptr(),
+                                    sync.data_ptr(), stamps.data_ptr(), *order,
                                     cuda_build.stream_handle(a.device))
     LAUNCHES[what] += 1
     cuda_build.check(code, symbol)
@@ -176,10 +246,12 @@ def fused_cholesky_kernel(a, block):
     return _launch(a, block, "fused_cholesky", "fused_chol_f32")
 
 
-def fused_cholesky2_kernel(a, block):
+def fused_cholesky2_kernel(a, block, depth=_LOOKAHEAD):
     """Launch K7 on a CUDA float32 (n, n) SPD matrix, n a multiple of
-    ``block``: its lower factor, exactly zero above the diagonal."""
-    return _launch(a, block, "fused_cholesky2", "fused_chol2_f32")
+    ``block``: its lower factor, exactly zero above the diagonal. Its
+    tickets follow :func:`tile_order` at look-ahead ``depth``; the factor is
+    the same bitwise at every depth."""
+    return _launch(a, block, "fused_cholesky2", "fused_chol2_f32", depth)
 
 
 def error_word(what):
@@ -190,11 +262,12 @@ def error_word(what):
 
 
 def chain_stamps(what):
-    """The chain stamps of the last launch of ``what``: a (3, nb) int64 CUDA
-    tensor, the card's %globaltimer in ns at which diagonal tile k took its
-    ticket (row 0), began its diagonal routine after its corrections (row
-    1) and set its ready flag (row 2). Reading it waits for the launch to
-    finish."""
+    """The chain stamps of the last launch of ``what``: a (5, nb) int64 CUDA
+    tensor, the card's %globaltimer in ns (rows :data:`CHAIN_ROWS`) at which
+    diagonal tile k took its ticket, finished its corrections j < k - 1,
+    began its diagonal routine, and set its ready flag; and at which the
+    sub-diagonal tile (k - 1, k) set its ready flag (0 for k = 0). Reading
+    it waits for the launch to finish."""
     return _LAST_STAMPS[what]
 
 

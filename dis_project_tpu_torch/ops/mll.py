@@ -55,9 +55,11 @@ _TRI_INV_MIN_N = 2048
 
 def resolve_chol_impl(n: int, dtype, device) -> str:
     """The O(N³) engine for ``'auto'``: ``'xla'`` at every size, dtype and
-    device. (The JAX package picks ``'blocked'`` for float32 N >= 2048 on
-    its chip; on the H100 the dense10k step measured 85.17 ms through
-    ``'xla'`` against 101.08 ms through ``'blocked'``, PERF.md.)"""
+    device. The JAX package picks ``'blocked'`` for float32 N >= 2048 on
+    its chip; the port takes that rule back on the card only once a run of
+    ``chip_smoke.py`` shows the blocked dense10k step faster than the xla
+    step by more than the step-to-step spread. Since K4's redesign the two
+    steps are within that spread of each other on an H100 (PERF.md)."""
     return "xla"
 
 

@@ -1,7 +1,8 @@
 """The blocking of the redesigned K5 and K6 held to the JAX package on the CPU.
 
-K5 (``csrc/chol_block.cu::chol_cluster_kernel``) and K6's diagonal routine
-(``csrc/chol_block.cuh::chol_inv_block_fast``) run only on the card, where
+K5 (``csrc/chol_block.cu::chol_cluster_kernel``) and the diagonal routine of
+K6 and K7, which is also K4's body (``csrc/chol_block.cuh::chol_inv_block_fast``),
+run only on the card, where
 ``chip_smoke.py`` holds them to their plain versions. Here plain PyTorch
 mirrors of their blocking (``ops/cuda_cholesky.py``: the 32-wide panel order,
 the TRSM each kernel uses, the block-wise inverse assembly) are held to the
@@ -56,8 +57,10 @@ def test_k5_mirror_matches_pallas(B):
 
 
 def test_k6_routine_mirror_matches_pallas():
-    """B=128: L at 1e-4 and Li at 5e-5 against the Pallas kernel, and the
-    mirror's own Li·L - I at 5e-5 (tests/test_pallas.py's bounds)."""
+    """The diagonal routine of K6 and K7, and since it became K4's body
+    also K4's blocking (``chol_inv_block_fast``), at B=128: L at 1e-4 and
+    Li at 5e-5 against the Pallas kernel, and the mirror's own Li·L - I at
+    5e-5 (tests/test_pallas.py's bounds)."""
     A = _spd(128, seed=10).astype(np.float32)
     L, Li = (t.numpy() for t in cc._chol_inv_fast_mirror(_t(A)))
     L_ref, Li_ref = (np.asarray(t) for t in pc.chol_inv_unblocked(jnp.asarray(A), interpret=True))
@@ -79,7 +82,8 @@ def test_k5_mirror_on_real_sigma_block(seed):
 
 @pytest.mark.parametrize("B", [128, 256])
 def test_k6_routine_mirror_on_real_sigma_block(B):
-    """Real Σ blocks: Li·L - I at most 2x the plain version's
+    """The routine of K6, K7 and K4 (``chol_inv_block_fast``) on real Σ
+    blocks: Li·L - I at most 2x the plain version's
     (``cholesky_ex`` + ``tri_inv``; measured 0.75-1.4x), and L from the f64
     factor at most 5x ``cholesky_ex``'s (measured 1.3-4.5x: LAPACK's
     recursive order, see the module note)."""
