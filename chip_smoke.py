@@ -12,7 +12,17 @@ JAX package. Phases (each raises on failure):
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with the tolerance stated beside each check, and
    time kernel, plain version and the library call (where one exists) with
-   CUDA events (median of repeats). K3, K4 and K5 take inputs made from the
+   CUDA events (median of repeats). K2's backward kernel (``[K2 bwd]``) is
+   held per parameter group (decay, sens, lengthscale) to the float64 plain
+   VJP: in float32 at N = 1e4 ('xx') on the dense10k MLL's own cotangent at
+   the init point, from each engine, and on a random non-symmetric one, at
+   most twice the float32 plain VJP's error; in float64 on 'mixed' rows at
+   N = 1000 and 1037 and on the canonical N = 35 rows, within 1e-10; every
+   other kind and dtype at N = 1037 under the same limits. K3 (3xTF32
+   tensor-core products) is held to its plain version (rel 1e-4) and to an
+   f64 product of the same Li, at most twice the plain version's error, at
+   N = 1e4 and at the ragged N = 1037 (its 4-byte copies). K3, K4 and K5
+   take inputs made from the
    real dense10k Σ at the init parameters; K4 and K5 are held to an f64
    factor computed on the card: their error may be at most twice the plain
    float32 version's; K4 at B = 128 also prints its phases from its own
@@ -33,7 +43,9 @@ JAX package. Phases (each raises on failure):
    under the JAX order (depth 0); K7's look-ahead depth is swept (``[K7]
    d=...``), and an order that defers far tiles instead is timed beside it.
 3. The main paths, each driven with every launch count set to 0 just
-   before it and read just after; each path's kernels must have launched:
+   before it and read just after; each path's kernels must have launched
+   (K2's backward on the golden fit and both dense routes), and the plain
+   VJP for the rows' gradient (``cuda_gram.PLAIN_X_GRADS``) never:
    - the canonical route (``main.run``, p53, float64) and the golden
      row-path fit (``trainer.fit``) held to ``tests/test_golden.py``;
    - the blocked engine at N = 1e4 on the real Σ: ``blocked_cholesky_t``
@@ -75,24 +87,34 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32
-# (non-tensor-core) rate.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, FP32
+# (non-tensor-core) rate and the dense TF32 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 # FP32 operations per covariance entry by kind, counted from the closed
 # forms in ops/lfm_kernels.py with each exp/erf as one operation (a lower
 # bound: CUDA's erff is itself a short polynomial).
 OPS_PER_ENTRY = {"xx": 67, "ff": 6, "xf": 20, "fx": 20, "mixed": 128}
+# The operations K2's backward needs per lower 'xx' entry, counted the same
+# way for one reverse sweep over the closed form: its value without the
+# sensitivities (65), the adjoints of its operations
+# (139: 1 per tangent-carrying factor of a product, per subtracted or
+# negated value and per exp, 3 per quotient, 5 per erf with the exp of its
+# derivative, one add per extra use of a value) and the weighting by the
+# cotangent and the five sums (11). The forward-mode dual arithmetic of
+# csrc/simm_gram.cu needs more, 275 on its nonzero tangent slots alone.
+OPS_PER_XX_ENTRY_BWD = 215
 
 # The dense10k configuration (BASELINE config 4 of the JAX package):
 # 50 genes x 200 timepoints, N = 1e4; Adam steps driven on the card.
 DENSE_GENES, DENSE_TIMEPOINTS, DENSE_STEPS = 50, 200, 10
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=FP32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -252,7 +274,7 @@ def main():
     # (random A A^T + n I matrices are far better conditioned than a SIMM
     # Gram and prove little).
     dense_data = port_main.synthetic_dense_data(G, T, seed=0, dtype=f32, device=dev)
-    Xr, _, _ = train_arrays(dense_data, dev, f32)
+    Xr, yr, _ = train_arrays(dense_data, dev, f32)
     p0 = simm.init_params(G, dtype=f32, device=dev)
     model32 = simm.ExactSIMM(num_genes=G, jitter=cfg.EXACT_JITTER, canonical_rows=True)
     with torch.no_grad():
@@ -260,30 +282,146 @@ def main():
                                      model32.jitter + p0.obs_stddev**2)
         L_cusolver = mll_ops.cholesky(sigma)
         Li = cc.tri_inv(L_cusolver)
-    ker = cc.syrk_ltl_tril_kernel(Li)
-    ref = cc.syrk_ltl_tril_plain(Li)
-    torch.cuda.synchronize()
-    err = float((ker - ref).abs().max())
-    rel = err / float(ref.abs().max())
-    # FP32 FMA sums over up to 1e4 terms in another order than cuBLAS:
-    # ~sqrt(n) eps relative to the largest entry; 1e-4 leaves room.
+    # FP32 sums over up to 1e4 terms in another order than cuBLAS:
+    # ~sqrt(n) eps relative to the largest entry; 1e-4 leaves room. Against
+    # the f64 product, the split 3xTF32 products may lose at most twice the
+    # plain FP32 version's accuracy.
     K3_REL_LIMIT = 1e-4
-    print(f"[K3] syrk_ltl_tril {Li.shape[0]} f32 (real Sigma): max abs err {err:.3e}, "
-          f"rel to max {rel:.3e} (limit {K3_REL_LIMIT:g})")
-    require(math.isfinite(rel) and rel <= K3_REL_LIMIT, f"K3 disagrees: rel {rel}")
-    require(bool(torch.all(torch.triu(ker, 1) == 0)), "K3 wrote above the diagonal")
+
+    def check_k3(Li, label):
+        ker = cc.syrk_ltl_tril_kernel(Li)
+        ref = cc.syrk_ltl_tril_plain(Li)
+        truth = torch.tril(Li.double().T @ Li.double())
+        torch.cuda.synchronize()
+        err = float((ker - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        truth_max = float(truth.abs().max())
+        e_ker = float((ker.double() - truth).abs().max()) / truth_max
+        e_plain = float((ref.double() - truth).abs().max()) / truth_max
+        print(f"[K3] syrk_ltl_tril {Li.shape[0]} f32 ({label}, 3xTF32 wgmma): max abs err "
+              f"{err:.3e}, rel to max {rel:.3e} (limit {K3_REL_LIMIT:g}); vs the f64 product: "
+              f"kernel {e_ker:.3e}, plain FP32 {e_plain:.3e} (limit 2x the plain's)")
+        require(math.isfinite(rel) and rel <= K3_REL_LIMIT, f"K3 {label} disagrees: rel {rel}")
+        require(e_ker <= 2 * e_plain, f"K3 {label} vs f64: {e_ker} > 2 x {e_plain}")
+        require(bool(torch.all(torch.triu(ker, 1) == 0)), f"K3 {label} wrote above the diagonal")
+        return err
+
+    # A ragged n (not a multiple of 4) takes the kernel's 4-byte copies: Li
+    # of the real Sigma's leading 1037 rows.
+    check_k3(cc.tri_inv(mll_ops.cholesky(sigma[:1037, :1037])), "real Sigma, leading 1037 rows")
+    err = check_k3(Li, "real Sigma")
     n = Li.shape[0]
     syrk_flops = 2 * sum((a + 1) * (n - a) for a in range(n))
-    b, by = bound_ms(n * (n + 1) // 2 * 4 + n * n * 4, syrk_flops)
+    # Three split passes on the tensor cores at the dense TF32 peak.
+    b, by = bound_ms(n * (n + 1) // 2 * 4 + n * n * 4, 3 * syrk_flops, TF32_FLOP_PER_S)
     records["K3"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: cc.syrk_ltl_tril_kernel(Li)),
         plain_ms=cuda_ms(lambda: cc.syrk_ltl_tril_plain(Li)),
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(lambda: torch.tril(Li.T @ Li)),
-        shape=f"{n}x{n} f32",
+        shape=f"{n}x{n} f32", peak="TF32 tensor cores, 495e12 FLOP/s, 3 passes",
     )
-    del ker, ref, Li
+    print(f"[K3] ms {records['K3']['ms']:.4f} plain_ms {records['K3']['plain_ms']:.4f} "
+          f"bound_ms {b:.4f} ({by}; {records['K3']['peak']}) library_ms "
+          f"{records['K3']['library_ms']:.4f} (torch.tril(Li.T @ Li), timed only)")
+    del Li
+
+    # K2's backward, per parameter group against the float64 plain VJP
+    # (max|kernel - f64 plain| / max|f64 plain|), beside the float32 plain
+    # VJP's figure on the same inputs.
+    def grad_errors(x, d, s, l, kind, g):
+        needs = (False, True, True, True)
+        ker = cuda_gram.gram_sym_bwd_kernel(x, d, s, l, kind, g)
+        ref = cuda_gram.gram_sym_vjp_plain(x.double(), d.double(), s.double(), l.double(),
+                                           kind, g.double(), needs)[1:]
+        plain = (None,) * 3
+        if x.dtype == f32:
+            plain = cuda_gram.gram_sym_vjp_plain(x, d, s, l, kind, g, needs)[1:]
+        torch.cuda.synchronize()
+        out = {}
+        for name, k, r, p in zip(("decay", "sens", "lengthscale"), ker, ref, plain):
+            if kind == "ff" and name != "lengthscale":
+                continue
+            m = float(r.abs().max())
+            out[name] = (float((k.double() - r).abs().max()) / m,
+                         None if p is None else float((p.double() - r).abs().max()) / m)
+        return out
+
+    def check_k2_bwd(label, x, d, s, l, kind, g):
+        errs = grad_errors(x, d, s, l, kind, g)
+        shown = "; ".join(f"{k} kernel {e:.3e}" + ("" if p is None else f" plain f32 {p:.3e}")
+                          for k, (e, p) in errs.items())
+        limit = "2x the f32 plain VJP's" if x.dtype == f32 else "1e-10"
+        print(f"[K2 bwd] {label} N={x.shape[0]} {kind} {x.dtype}: vs f64 plain VJP, "
+              f"rel to max: {shown} (limit {limit})")
+        for k, (e, p) in errs.items():
+            bad = not math.isfinite(e) or (e > 2 * p if p is not None else e > 1e-10)
+            require(not bad, f"K2 bwd {label} {kind} {k}: {e} (plain {p})")
+
+    def mll_cotangent(impl):
+        """The cotangent the dense10k MLL backward hands to the Gram at
+        the init point (the lower-triangle form at this size)."""
+        K = model32.gram(p0, Xr, "xx").detach().requires_grad_(True)
+        sig = mll_ops.add_diagonal(K, model32.jitter + p0.obs_stddev**2)
+        loss = -mll_ops.mvn_logpdf(yr, model32.mean_function(p0, Xr), sig, impl=impl)
+        return torch.autograd.grad(loss, K)[0]
+
+    d0, s0, l0 = p0.decay, p0.sensitivity, p0.lengthscale
+    g_xla = mll_cotangent("xla")
+    for impl, g in (("xla", g_xla), ("blocked", mll_cotangent("blocked"))):
+        check_k2_bwd(f"dense10k MLL cotangent ({impl})", Xr, d0, s0, l0, "xx", g)
+    g_rand = torch.randn(Xr.shape[0], Xr.shape[0], generator=gen).to(dev)
+    check_k2_bwd("random non-symmetric cotangent", Xd, d32, s32, l32, "xx", g_rand)
+    del g_rand
+    for n_rows in (1000, 1037):
+        d5, s5, l5 = kinetics(5, f64)
+        xm = mixed_rows(n_rows, 5, f64)
+        check_k2_bwd("random cotangent", xm, d5, s5, l5, "mixed",
+                     torch.randn(n_rows, n_rows, generator=gen, dtype=f64).to(dev))
+    # Every other template instance (kind x dtype) at the ragged N = 1037.
+    for dtype, kind in ((f32, "mixed"), (f32, "ff"), (f64, "ff"), (f64, "xx")):
+        d5, s5, l5 = kinetics(5, dtype)
+        xm = mixed_rows(1037, 5, dtype)
+        if kind != "mixed":  # all expression rows, or all force rows
+            xm[:, 2] = float(kind == "xx")
+            xm[:, 1] = torch.randint(0, 5, (1037,), generator=gen).to(dtype).to(dev)
+        check_k2_bwd("random cotangent", xm, d5, s5, l5, kind,
+                     torch.randn(1037, 1037, generator=gen, dtype=f64).to(dtype).to(dev))
+    # Force rows carry gene -1, clamped to 0 by the gathers: with no
+    # expression row of gene 0, the kernel must credit gene 0 nothing.
+    for dtype in (f32, f64):
+        xm = mixed_rows(1037, 5, dtype)
+        xm[:, 1] = torch.where(xm[:, 2] == 1, xm[:, 1].clamp(min=1), xm[:, 1])
+        d5, s5, l5 = kinetics(5, dtype)
+        gd, gs, _ = cuda_gram.gram_sym_bwd_kernel(
+            xm, d5, s5, l5, "mixed", torch.randn(1037, 1037, generator=gen).to(dtype).to(dev))
+        clean = float(gd[0]) == 0 and float(gs[0]) == 0 and bool(torch.all(gd[1:] != 0))
+        print(f"[K2 bwd] mixed N=1037 {dtype}, force rows (gene -1) and no gene-0 expression "
+              f"row: gene 0's decay and sens gradients exactly 0: {clean}")
+        require(clean, "K2 bwd credited a force row to gene 0")
+    Xc, _, _ = train_arrays(P53Data(replicate=0, source="synthetic", seed=0), dev, f64)
+    pc = simm.init_params(5, dtype=f64, device=dev)
+    check_k2_bwd("canonical rows, random cotangent", Xc, pc.decay, pc.sensitivity,
+                 pc.lengthscale, "mixed",
+                 torch.randn(Xc.shape[0], Xc.shape[0], generator=gen, dtype=f64).to(dev))
+    n = Xr.shape[0]
+    needs = (False, True, True, True)
+    b, by = bound_ms(input_bytes(Xr, d0, s0, l0, g_xla) + (2 * G + 1) * 8,
+                     n * (n + 1) // 2 * OPS_PER_XX_ENTRY_BWD)
+    records["K2bwd"] = dict(
+        max_abs_err=max(float((k - r).abs().max()) for k, r in zip(
+            cuda_gram.gram_sym_bwd_kernel(Xr, d0, s0, l0, "xx", g_xla),
+            cuda_gram.gram_sym_vjp_plain(Xr, d0, s0, l0, "xx", g_xla, needs)[1:])),
+        ms=cuda_ms(lambda: cuda_gram.gram_sym_bwd_kernel(Xr, d0, s0, l0, "xx", g_xla)),
+        plain_ms=cuda_ms(lambda: cuda_gram.gram_sym_vjp_plain(Xr, d0, s0, l0, "xx", g_xla, needs),
+                         reps=5),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"{n}x{n} xx f32, the dense10k MLL cotangent",
+    )
+    print(f"[K2 bwd] ms {records['K2bwd']['ms']:.4f} plain_ms {records['K2bwd']['plain_ms']:.4f} "
+          f"bound_ms {b:.4f} ({by}) library_ms None")
+    del g_xla
 
     # K4 / K5 on diagonal blocks of the real Sigma, held to an f64 factor
     # computed on the card: each kernel's error may be at most twice the
@@ -589,7 +727,7 @@ def main():
     main_counts = {k: 0 for c in counters for k in c}
 
     def drive(what, fn, must_launch):
-        for counts in counters:
+        for counts in (*counters, cuda_gram.PLAIN_X_GRADS):
             for k in counts:
                 counts[k] = 0
         out = fn()
@@ -597,9 +735,12 @@ def main():
         got = {k: v for c in counters for k, v in c.items()}
         for k, v in got.items():
             main_counts[k] += v
-        print(f"[{what}] launches {got}")
+        print(f"[{what}] launches {got}; plain VJPs for the rows' gradient "
+              f"{cuda_gram.PLAIN_X_GRADS}")
         for k in must_launch:
             require(got[k] > 0, f"{what}: kernel {k} was not launched")
+        require(all(v == 0 for v in cuda_gram.PLAIN_X_GRADS.values()),
+                f"{what}: the rows' gradient went through the plain VJP")
         return out
 
     # Canonical route through the CLI's entry point, float64, and the golden
@@ -617,7 +758,8 @@ def main():
         probe = golden_model.latent_predict(res.params, rows, X, y, var).mean.cpu().tolist()
         return canon, mll0, res, probe
 
-    canon, mll0, res, probe = drive("canonical", canonical_route, ("gram_rect", "gram_sym"))
+    canon, mll0, res, probe = drive("canonical", canonical_route,
+                                    ("gram_rect", "gram_sym", "gram_sym_bwd"))
     for what, dist, n_pts in (("latent", canon.latent, 100),
                               ("expression", canon.expression, 500)):
         require(dist.mean.shape == (n_pts,) and dist.cov.shape == (n_pts, n_pts),
@@ -716,7 +858,7 @@ def main():
                 preset="dense10k", synth_genes=G, synth_timepoints=T,
                 num_iters=DENSE_STEPS, x64=False, device="cuda",
             ))
-        must = ("gram_sym", "syrk_ltl_tril")
+        must = ("gram_sym", "gram_sym_bwd", "syrk_ltl_tril")
         if impl == "blocked":
             must += ("chol_inv_unblocked",)
         dense = drive(f"dense {impl}", run, must)
@@ -805,9 +947,8 @@ def main():
     tail = {
         "syrk K3": lambda: cc.syrk_ltl_tril_kernel(Li),
         "d_sigma": d_sigma,
-        "gram backward (plain VJP)": lambda: cuda_gram.plain_vjp(
-            lambda x, d, s, l: gram_ops.cross_covariance_kind(x, x, d, s, l, "xx"),
-            (dense.X, dd, ss, ll), (False, True, True, True), dsig),
+        "gram backward K2 bwd": lambda: cuda_gram.gram_sym_bwd_kernel(
+            dense.X, dd, ss, ll, "xx", dsig),
     }
     stage_tables = {
         "xla": {**shared,
@@ -859,6 +1000,8 @@ def main():
                "dis_project_tpu/ops/pallas_gram.py:82"),
         "K2": ("gram_sym", "dis_project_tpu_torch/csrc/simm_gram.cu",
                "dis_project_tpu/ops/pallas_gram.py:298"),
+        "K2bwd": ("gram_sym_bwd", "dis_project_tpu_torch/csrc/simm_gram.cu",
+                  "dis_project_tpu/ops/pallas_gram.py:478 (_gram_sym_bwd, XLA fusion)"),
         "K3": ("syrk_ltl_tril", "dis_project_tpu_torch/csrc/syrk.cu",
                "dis_project_tpu/ops/pallas_cholesky.py:886"),
         "K4": ("chol_inv_unblocked", "dis_project_tpu_torch/csrc/chol_block.cu",
@@ -878,6 +1021,7 @@ def main():
             "launches": main_counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
+            **({"peak": r["peak"]} if "peak" in r else {}),
         })
     print(f"[dense] step_ms_median xla {steady_xla!r} blocked {steady_blocked!r} "
           f"peak_memory_gib xla {peak_xla!r} blocked {peak_blocked!r}")

@@ -249,7 +249,7 @@ class ExactSIMM:
 
         Kxx = self.gram(params, x, self._kind("xx"))
         Kxx = mll_ops.add_diagonal(Kxx, variances + self.jitter)
-        L = mll_ops.cholesky(Kxx)
+        L = mll_ops.cholesky(Kxx, self._resolve_chol(x.shape[0], x.dtype, x.device))
 
         Kxf = self.cross_covariance(params, x, test_rows, self._kind("xf"))  # (N, M)
         solved = mll_ops.chol_solve(L, Kxf)  # (N, M)
@@ -284,7 +284,7 @@ class ExactSIMM:
 
         Kxx = self.gram(params, x, self._kind("xx"))
         sigma = mll_ops.add_diagonal(Kxx, variances + params.obs_stddev**2)
-        L = mll_ops.cholesky(sigma)
+        L = mll_ops.cholesky(sigma, self._resolve_chol(x.shape[0], x.dtype, x.device))
 
         Ktt = self.gram(params, t2, self._kind("xx"))
         Kxt = self.cross_covariance(params, x, t2, self._kind("xx"))

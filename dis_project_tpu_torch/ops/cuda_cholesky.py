@@ -6,7 +6,9 @@ Port of ``dis_project_tpu/ops/pallas_cholesky.py``. Kernels (``csrc/``):
 
 - :func:`syrk_ltl_tril` — K3, ``csrc/syrk.cu::syrk_ltl_tril_kernel``,
   replacing ``pallas_cholesky.py::_syrk_kernel``: ``tril(Liᵀ Li)`` for a
-  lower-triangular float32 ``Li``, over the lower output tiles only.
+  lower-triangular float32 ``Li``, over the lower output tiles only, in
+  split 3xTF32 products on the tensor cores (``wgmma``): f32-faithful,
+  as the JAX kernel's split-bf16 passes are.
 - :func:`chol_inv_unblocked` — K4, ``csrc/chol_block.cu::chol_inv_kernel``,
   replacing ``_chol_inv_kernel``: L and L⁻¹ of one (B, B) SPD block,
   B a multiple of 128 up to 512, float32, by the routine K6 and K7 run on
@@ -674,7 +676,8 @@ def syrk_ltl_tril_kernel(Li):
     if not Li.is_contiguous():
         raise ValueError("Li must be contiguous (row-major)")
     n = Li.shape[0]
-    out = torch.zeros((n, n), dtype=Li.dtype, device=Li.device)  # upper tiles stay 0
+    # The kernel writes the lower tiles only: the upper ones keep these zeros.
+    out = torch.zeros((n, n), dtype=Li.dtype, device=Li.device)
     lib = cuda_build.load("syrk", SYRK_SIGNATURES)
     with torch.cuda.device(Li.device):
         code = lib.syrk_ltl_tril_f32(

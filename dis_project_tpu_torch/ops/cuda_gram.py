@@ -1,5 +1,5 @@
-"""SIMM covariance kernels K1 (rectangular) and K2 (symmetric), with their
-plain PyTorch versions.
+"""SIMM covariance kernels K1 (rectangular) and K2 (symmetric), K2's
+backward kernel, and their plain PyTorch versions.
 
 Port of ``dis_project_tpu/ops/pallas_gram.py``:
 
@@ -8,8 +8,13 @@ Port of ``dis_project_tpu/ops/pallas_gram.py``:
 - :func:`gram_sym` — K2, ``csrc/simm_gram.cu::gram_sym_kernel``, replacing
   ``pallas_gram.py::_gram_sym_kernel``: the square Gram over lower-triangle
   tiles only, each off-diagonal tile mirrored by a transposed second write.
+- K2's gradient — ``csrc/simm_gram.cu::gram_sym_bwd_kernel``
+  (:func:`gram_sym_bwd_kernel`), replacing the XLA fusion of
+  ``pallas_gram.py::_gram_sym_bwd``: the gradient with respect to decay,
+  sensitivity and lengthscale over the same lower tiles, reading both
+  triangles of the (not necessarily symmetric) cotangent.
 
-Both take (t, gene, flag) rows, pack per-row ``[t, decay, sens, flag]``
+All take (t, gene, flag) rows, pack per-row ``[t, decay, sens, flag]``
 metadata (gene indices clamped, as ``ops.gram`` does) and evaluate the
 closed form of ``kind`` ∈ {'xx', 'ff', 'xf', 'fx', 'mixed'}.
 
@@ -17,10 +22,12 @@ Dispatch: on a CUDA tensor the wrapper launches the kernel (float32 or
 float64) or raises; on a CPU tensor it takes the plain version — never a
 fallback from one to the other. Each launch adds one to ``LAUNCHES``.
 
-Gradients: ``torch.autograd.Function``s whose backward differentiates the
+Gradients: ``torch.autograd.Function``s. K1's backward differentiates the
 plain ``ops.gram.cross_covariance_kind`` closed form, as the JAX package's
-``_ccov_bwd`` / ``_gram_sym_bwd`` do; flag columns carry no gradient under
-a declared kind. There is no backward kernel, on the TPU or here.
+``_ccov_bwd`` does. K2's backward launches ``gram_sym_bwd_kernel`` on a
+CUDA tensor; the gradient with respect to the rows ``x`` (which no main
+path asks for) is the plain VJP, counted in ``PLAIN_X_GRADS``. Flag
+columns carry no gradient under a declared kind.
 """
 
 from __future__ import annotations
@@ -39,7 +46,10 @@ KIND_CODES = {"xx": 0, "ff": 1, "xf": 2, "fx": 3, "mixed": 4}
 SYM_KINDS = ("xx", "ff", "mixed")
 
 # Plain-integer launch counters, one per kernel.
-LAUNCHES = {"gram_rect": 0, "gram_sym": 0}
+LAUNCHES = {"gram_rect": 0, "gram_sym": 0, "gram_sym_bwd": 0}
+# Plain VJPs that K2's backward runs on a CUDA tensor for the gradient with
+# respect to the rows x (the kernel gives decay, sens and lengthscale only).
+PLAIN_X_GRADS = {"gram_sym_x": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
@@ -47,7 +57,12 @@ SIGNATURES = {
     "simm_gram_rect_f64": [_P, _I, _P, _I, _P, _P, _I, _P],
     "simm_gram_sym_f32": [_P, _I, _P, _P, _I, _P],
     "simm_gram_sym_f64": [_P, _I, _P, _P, _I, _P],
+    # (meta, gene, n, G, ell, g, grad, kind, stream)
+    "simm_gram_sym_bwd_f32": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+    "simm_gram_sym_bwd_f64": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
 }
+# Largest dynamic shared memory of the backward's 2G+1 float64 bins.
+_BWD_BINS_MAX_BYTES = 160 * 1024
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -133,6 +148,48 @@ def gram_sym_plain(x, decay, sens, lengthscale, kind="mixed"):
     return torch.tril(K) + torch.tril(K, -1).T
 
 
+def gram_sym_bwd_kernel(x, decay, sens, lengthscale, kind, g):
+    """Launch K2's backward on CUDA tensors: the gradient of
+    ``<g, gram_sym(x, decay, sens, lengthscale, kind)>`` with respect to
+    ``decay`` (G,), ``sens`` (G,) and ``lengthscale`` (shaped like it), for
+    an (N, N) cotangent ``g`` that need not be symmetric. Each entry's
+    partials are in the working dtype, every sum in float64; the result
+    comes back in the working dtype."""
+    _check_sym_kind(kind)
+    dev, dtype = _check_cuda_inputs((x,), decay, sens, lengthscale, kind)
+    n, G = x.shape[0], decay.shape[0]
+    if g.shape != (n, n):
+        raise ValueError(f"cotangent must be ({n}, {n}), got {tuple(g.shape)}")
+    if (2 * G + 1) * 8 > _BWD_BINS_MAX_BYTES:
+        raise ValueError(f"K2 backward: {G} genes need more shared memory than a CTA has")
+    meta = pack_meta(x, decay, sens)
+    gene = x[:, 1].to(torch.int32).contiguous()  # unclamped; the kernel clamps
+    ell = lengthscale.reshape(1).contiguous()
+    g = g.to(dtype).contiguous()
+    grad = torch.zeros(2 * G + 1, dtype=torch.float64, device=dev)
+    lib = cuda_build.load("simm_gram", SIGNATURES)
+    fn = getattr(lib, f"simm_gram_sym_bwd_{_SUFFIX[dtype]}")
+    with torch.cuda.device(dev):
+        code = fn(meta.data_ptr(), gene.data_ptr(), n, G, ell.data_ptr(), g.data_ptr(),
+                  grad.data_ptr(), KIND_CODES[kind], cuda_build.stream_handle(dev))
+    LAUNCHES["gram_sym_bwd"] += 1
+    cuda_build.check(code, "simm_gram_sym_bwd")
+    grad = grad.to(dtype)
+    return grad[:G], grad[G:2 * G], grad[2 * G].reshape(lengthscale.shape)
+
+
+def gram_sym_vjp_plain(x, decay, sens, lengthscale, kind, g, needs):
+    """Plain version of K2's backward: the VJP of the closed form
+    ``cross_covariance_kind(x, x, ...)`` against ``g`` for the inputs
+    flagged in ``needs`` (x, decay, sens, lengthscale; None for the
+    others), as the JAX package's ``_gram_sym_bwd`` takes it."""
+    _check_sym_kind(kind)
+    return plain_vjp(
+        lambda x, d, s, l: gram_ops.cross_covariance_kind(x, x, d, s, l, kind),
+        (x, decay, sens, lengthscale), needs, g,
+    )
+
+
 def plain_vjp(fn, inputs, needs_grad, grad_out):
     """Gradients of ``fn(*inputs)`` against ``grad_out`` for the inputs
     flagged in ``needs_grad`` (None for the others) — the backward of every
@@ -141,9 +198,11 @@ def plain_vjp(fn, inputs, needs_grad, grad_out):
         leaves = [a.detach().requires_grad_(bool(nd)) for a, nd in zip(inputs, needs_grad)]
         out = fn(*leaves)
         wanted = [a for a, nd in zip(leaves, needs_grad) if nd]
+        # An output that depends on none of them (k_ff and the kinetics)
+        # has no graph: every gradient is None.
         grads = iter(torch.autograd.grad(
             out, wanted, grad_out.to(out.dtype), allow_unused=True
-        )) if wanted else iter(())
+        ) if out.requires_grad else [None] * len(wanted))
     return tuple(next(grads) if nd else None for nd in needs_grad)
 
 
@@ -177,12 +236,22 @@ class _GramSym(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        kind = ctx.kind
-        grads = plain_vjp(
-            lambda x, d, s, l: gram_ops.cross_covariance_kind(x, x, d, s, l, kind),
-            ctx.saved_tensors, ctx.needs_input_grad[:4], g,
-        )
-        return (*grads, None)
+        x, decay, sens, lengthscale = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:4]
+        if not x.is_cuda:
+            grads = gram_sym_vjp_plain(x, decay, sens, lengthscale, ctx.kind, g, needs)
+            return (*grads, None)
+        gx = None
+        if needs[0]:
+            # The rows' gradient has no kernel: the plain VJP, counted.
+            PLAIN_X_GRADS["gram_sym_x"] += 1
+            gx = gram_sym_vjp_plain(x, decay, sens, lengthscale, ctx.kind, g,
+                                    (True, False, False, False))[0]
+        gd = gs = gl = None
+        if any(needs[1:]):
+            gd, gs, gl = gram_sym_bwd_kernel(x, decay, sens, lengthscale, ctx.kind, g)
+        return (gx, gd if needs[1] else None, gs if needs[2] else None,
+                gl if needs[3] else None, None)
 
 
 def cross_covariance(x1, x2, decay, sens, lengthscale, kind="mixed"):
