@@ -3,7 +3,10 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and ``nvcc``; it imports nothing of JAX or of the
-JAX package. Phases (each raises on failure):
+JAX package. ``python3 chip_smoke.py --times ROOT`` only times K2, K2's
+backward and ``blocked_cholesky`` at the dense10k shapes with the package
+under ``ROOT`` (:func:`times`): run it on a parent tree and on this one, in
+turns, to compare them. Phases (each raises on failure):
 
 1. Build the kernels from ``dis_project_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together); print the build seconds, the card's
@@ -12,13 +15,19 @@ JAX package. Phases (each raises on failure):
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with the tolerance stated beside each check, and
    time kernel, plain version and the library call (where one exists) with
-   CUDA events (median of repeats). K2's backward kernel (``[K2 bwd]``) is
-   held per parameter group (decay, sens, lengthscale) to the float64 plain
-   VJP: in float32 at N = 1e4 ('xx') on the dense10k MLL's own cotangent at
-   the init point, from each engine, and on a random non-symmetric one, at
-   most twice the float32 plain VJP's error; in float64 on 'mixed' rows at
-   N = 1000 and 1037 and on the canonical N = 35 rows, within 1e-10; every
-   other kind and dtype at N = 1037 under the same limits. K3 (3xTF32
+   CUDA events (median of repeats; K2 and K2's backward also back to back,
+   :func:`back_to_back_ms`). K2 (``[K2]``) also on ragged N = 1037
+   and 35 for every kind and dtype, and with 50 genes at random (tiles with
+   more distinct decays than its tables take). K2's backward kernel (``[K2
+   bwd]``) is held per parameter group (decay, sens, lengthscale) to the
+   float64 plain VJP: in float32 at N = 1e4 ('xx') on the dense10k MLL's own
+   cotangent at the init point, from each engine, and on a random
+   non-symmetric one, at most twice the float32 plain VJP's error; in
+   float64 on 'mixed' rows at N = 1000 and 1037 and on the canonical N = 35
+   rows, within 1e-10; every other kind and dtype at N = 1037 under the same
+   limits, also with 50 genes. The plain hoisted arithmetic that K2 and its
+   backward implement (``[hoisted]``, ``cuda_gram.gram_sym_hoisted``) is held
+   to the plain closed form at N = 1037 and 35, every kind and dtype. K3 (3xTF32
    tensor-core products) is held to its plain version (rel 1e-4) and to an
    f64 product of the same Li, at most twice the plain version's error, at
    N = 1e4 and at the ragged N = 1037 (its 4-byte copies). K3, K4 and K5
@@ -51,13 +60,13 @@ JAX package. Phases (each raises on failure):
    - the blocked engine at N = 1e4 on the real Σ: ``blocked_cholesky_t``
      (K4), ``blocked_cholesky(diag='pallas')`` (K5) and
      ``diag='pallas_inv'`` (K4), each reconstructing Σ no worse than twice
-     cuSOLVER's factor, and ``inv_from_factor_tril`` from the factor's
-     diagonal inverses (K3) against its plain version;
+     cuSOLVER's factor (the K5 one also timed), and ``inv_from_factor_tril``
+     from the factor's diagonal inverses (K3) against its plain version;
    - the fused factorisations ``fused_cholesky`` (K6) and
      ``fused_cholesky2`` (K7) at N = 1e4 on the real Σ;
    - the dense10k route (``main.run_dense``, 50 x 200 = 1e4, float32,
      10 Adam steps), whose ``'auto'`` engine is ``'xla'``: per-step ms,
-     their spread, peak memory;
+     their spread, peak memory (the run's own, above what the script holds);
    - ``latent_predict`` at N = 1e4 on the 200-point training grid;
    - the same 10 steps on the same data through
      ``ExactSIMM(chol_impl='blocked')``, with run_dense's training loop.
@@ -93,19 +102,33 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 
-# FP32 operations per covariance entry by kind, counted from the closed
-# forms in ops/lfm_kernels.py with each exp/erf as one operation (a lower
-# bound: CUDA's erff is itself a short polynomial).
-OPS_PER_ENTRY = {"xx": 67, "ff": 6, "xf": 20, "fx": 20, "mixed": 128}
+# FP32 operations per covariance entry by kind, each exp/erf counted as one
+# operation (a lower bound: CUDA's erff is itself a short polynomial). 'xf'
+# and 'fx' count K1's closed form (ops/lfm_kernels.py), which evaluates
+# everything per entry. 'xx', 'ff' and 'mixed' count K2's hoisted form
+# (csrc/simm_gram.cu, cuda_gram.gram_sym_hoisted): the per-entry terms of
+# one lower entry ('xx': delta, delta / l, the four erf arguments, the two
+# exp with their products, the four erf, A1 and A2, A1 - r_a e_b and
+# A2 - r_b e_a, 1 / (D_a + D_b), U and S_a S_b U: 31; 'ff': delta^2, its
+# quotient by 2l and the exp: 4; 'mixed': both, k_xf and k_fx from A1 and
+# A2, the four flag weights and their sum: 55), plus OPS_PER_ROW once for
+# each row (gamma, t / l, E = exp(gamma^2), e = exp(-D t), the two erf of r
+# and r: 12), not once per tile as the kernel stages them.
+OPS_PER_ENTRY = {"xx": 31, "ff": 4, "xf": 20, "fx": 20, "mixed": 55}
+OPS_PER_ROW = 12
 # The operations K2's backward needs per lower 'xx' entry, counted the same
-# way for one reverse sweep over the closed form: its value without the
-# sensitivities (65), the adjoints of its operations
-# (139: 1 per tangent-carrying factor of a product, per subtracted or
-# negated value and per exp, 3 per quotient, 5 per erf with the exp of its
-# derivative, one add per extra use of a value) and the weighting by the
-# cotangent and the five sums (11). The forward-mode dual arithmetic of
-# csrc/simm_gram.cu needs more, 275 on its nonzero tangent slots alone.
-OPS_PER_XX_ENTRY_BWD = 215
+# way for one reverse sweep over the hoisted form (cuda_gram.
+# gram_sym_hoisted): its per-entry value without S_a S_b (29), the seed and
+# the adjoints of U, E, A1, A2, r and e (14), the four erf derivatives
+# (exp and three operations each: 16), the chain into decay (11 + 11, the
+# per-row derivative factors read, not recomputed), lengthscale (20) and
+# sensitivity (2) partials (108 in all), and the weighting by the
+# cotangent and the five float64 sums (11): 119. Per row once (OPS_ROW_BWD):
+# OPS_PER_ROW, r's derivatives in D and l and the per-row factors of the
+# chain: 33. The forward-mode duals that the earlier kernel ran needed 275
+# on their nonzero tangent slots alone.
+OPS_PER_XX_ENTRY_BWD = 119
+OPS_ROW_BWD = 33
 
 # The dense10k configuration (BASELINE config 4 of the JAX package):
 # 50 genes x 200 timepoints, N = 1e4; Adam steps driven on the card.
@@ -137,12 +160,81 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def back_to_back_ms(fn):
+    """Median over 10 rounds of 20 calls of ``fn`` between one pair of
+    CUDA events, per call: the card's time, with the host's time per call
+    hidden behind it (one call between two events, :func:`cuda_ms`, waits
+    for the host too)."""
+    import torch
+
+    calls = 20
+    fn()
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def times(root):
+    """``--times ROOT``: K2 and K2's backward, one call (:func:`cuda_ms`)
+    and back to back, and ``blocked_cholesky`` (float32, block 512, K5
+    diagonal steps) on the dense10k inputs at the init point (N = 1e4,
+    'xx', the 'xla' engine's MLL cotangent, the real Σ), with the
+    ``dis_project_tpu_torch`` under ``ROOT``: this checkout, or a parent
+    unpacked with ``git archive``, so that two trees are timed by the same
+    code. Prints one JSON line with the card's name and power limit."""
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import cuda_build, cuda_gram
+    from dis_project_tpu_torch.ops import cuda_cholesky as cc
+    from dis_project_tpu_torch.ops import mll as mll_ops
+    from dis_project_tpu_torch.ops.precision import default_device
+
+    dev, f32 = default_device(), torch.float32
+    cuda_build.build(["simm_gram", "chol_block"])
+    G, T = DENSE_GENES, DENSE_TIMEPOINTS
+    X, y, _ = train_arrays(port_main.synthetic_dense_data(G, T, seed=0, dtype=f32, device=dev),
+                           dev, f32)
+    p0 = simm.init_params(G, dtype=f32, device=dev)
+    d, s, l = p0.decay, p0.sensitivity, p0.lengthscale
+    model = simm.ExactSIMM(num_genes=G, jitter=cfg.EXACT_JITTER, canonical_rows=True)
+    K = model.gram(p0, X, "xx").detach().requires_grad_(True)
+    sigma = mll_ops.add_diagonal(K, model.jitter + p0.obs_stddev**2)
+    loss = -mll_ops.mvn_logpdf(y, model.mean_function(p0, X), sigma, impl="xla")
+    g = torch.autograd.grad(loss, K)[0]
+    sigma = sigma.detach()
+    del K, loss
+    calls = {
+        "gram_sym": lambda: cuda_gram.gram_sym_kernel(X, d, s, l, "xx"),
+        "gram_sym_bwd": lambda: cuda_gram.gram_sym_bwd_kernel(X, d, s, l, "xx", g),
+    }
+    out = {name: {"ms": cuda_ms(fn), "back_to_back_ms": back_to_back_ms(fn)}
+           for name, fn in calls.items()}
+    out["blocked_cholesky f32 N=1e4 B=512 pallas"] = {"ms": cuda_ms(
+        lambda: cc.blocked_cholesky(sigma, block=512, diag="pallas"), reps=5)}
+    print(json.dumps({"times": {"root": root, "card": nvidia_smi_line(), **out}}))
 
 
 def main():
@@ -185,9 +277,15 @@ def main():
     # -- phase 2: kernels against their plain versions -----------------------
     gen = torch.Generator().manual_seed(1234)
 
-    def kinetics(G, dtype):
-        decay = (0.2 + 0.8 * torch.rand(G, generator=gen, dtype=f64)).to(dtype).to(dev)
-        sens = (0.5 + torch.rand(G, generator=gen, dtype=f64)).to(dtype).to(dev)
+    # The 50-gene checks draw from their own generator: the shared one's
+    # sequence stays as it was before they were added, so that the 'ff'
+    # float32 check of K2's backward at N = 1037 gets the draw on which an
+    # earlier form of the kernel failed (PERF.md, Findings).
+    gen50 = torch.Generator().manual_seed(50)
+
+    def kinetics(G, dtype, rng=gen):
+        decay = (0.2 + 0.8 * torch.rand(G, generator=rng, dtype=f64)).to(dtype).to(dev)
+        sens = (0.5 + torch.rand(G, generator=rng, dtype=f64)).to(dtype).to(dev)
         return decay, sens, torch.tensor(2.5, dtype=dtype, device=dev)
 
     def dense_rows(G, T, dtype):
@@ -195,12 +293,21 @@ def main():
         g = torch.arange(G, dtype=dtype, device=dev).repeat_interleave(T)
         return torch.stack([t, g, torch.ones_like(t)], dim=-1)
 
-    def mixed_rows(n, G, dtype):
-        t = 12.0 * torch.rand(n, generator=gen, dtype=f64)
-        f = (torch.rand(n, generator=gen) < 0.5).to(f64)
-        g = torch.randint(0, G, (n,), generator=gen).to(f64)
+    def mixed_rows(n, G, dtype, rng=gen):
+        t = 12.0 * torch.rand(n, generator=rng, dtype=f64)
+        f = (torch.rand(n, generator=rng) < 0.5).to(f64)
+        g = torch.randint(0, G, (n,), generator=rng).to(f64)
         g = torch.where(f == 0, -torch.ones_like(g), g)  # force rows carry -1
         return torch.stack([t, g, f], dim=-1).to(dtype).to(dev)
+
+    def kind_rows(n, G, dtype, kind, rng=gen):
+        """mixed_rows, or all expression rows ('xx') or all force rows
+        ('ff') with random genes."""
+        xm = mixed_rows(n, G, dtype, rng)
+        if kind != "mixed":
+            xm[:, 2] = float(kind == "xx")
+            xm[:, 1] = torch.randint(0, G, (n,), generator=rng).to(dtype).to(dev)
+        return xm
 
     def input_bytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -242,10 +349,12 @@ def main():
         if timed:
             n = x.shape[0]
             b, by = bound_ms(input_bytes(x, d, s, l) + ker.numel() * ker.element_size(),
-                             n * (n + 1) // 2 * OPS_PER_ENTRY[kind])
+                             n * (n + 1) // 2 * OPS_PER_ENTRY[kind] + n * OPS_PER_ROW)
             records["K2"] = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: cuda_gram.gram_sym_kernel(x, d, s, l, kind)),
+                back_to_back_ms=back_to_back_ms(
+                    lambda: cuda_gram.gram_sym_kernel(x, d, s, l, kind)),
                 plain_ms=cuda_ms(lambda: cuda_gram.gram_sym_plain(x, d, s, l, kind)),
                 bound_ms=b, bound_by=by, library_ms=None,
                 shape=f"{n}x{n} {kind} f32",
@@ -265,9 +374,17 @@ def main():
         d5, s5, l5 = kinetics(5, dtype)
         check_k1(Xc, expression_grid(5, 100, dtype=dtype, device=dev), d5, s5, l5,
                  "xx", atol, timed=False)
-        xm = mixed_rows(1000, 5, dtype)
-        check_k2(xm, d5, s5, l5, "mixed", atol, timed=False)
-        check_k2(mixed_rows(1037, 5, dtype), d5, s5, l5, "mixed", atol, timed=False)
+        check_k2(mixed_rows(1000, 5, dtype), d5, s5, l5, "mixed", atol, timed=False)
+        # Ragged N: the 64-row tiles' masked edges and the scalar stores of a
+        # row length that is not a whole number of 16-byte units. With 50
+        # genes at random a tile holds more than cuda_gram's GCAP = 8
+        # distinct decays on a side, and takes the per-entry erf path.
+        kin50 = kinetics(50, dtype, gen50)
+        for n_rows, kin, rng in ((1037, (d5, s5, l5), gen), (35, (d5, s5, l5), gen),
+                                 (1037, kin50, gen50)):
+            for kind in cuda_gram.SYM_KINDS:
+                check_k2(kind_rows(n_rows, kin[0].shape[0], dtype, kind, rng), *kin, kind, atol,
+                         timed=False)
     check_k2(Xd, d32, s32, l32, "xx", 5e-5, timed=True)
 
     # K3, K4 and K5 on inputs from a REAL dense10k Sigma at the init params
@@ -330,9 +447,13 @@ def main():
     # K2's backward, per parameter group against the float64 plain VJP
     # (max|kernel - f64 plain| / max|f64 plain|), beside the float32 plain
     # VJP's figure on the same inputs.
-    def grad_errors(x, d, s, l, kind, g):
+    def grad_errors(x, d, s, l, kind, g, ker=None):
+        """Per group: (error of ``ker``, by default the kernel's gradient,
+        error of the f32 plain VJP or None in f64), each against the f64
+        plain VJP, relative to its largest entry."""
         needs = (False, True, True, True)
-        ker = cuda_gram.gram_sym_bwd_kernel(x, d, s, l, kind, g)
+        if ker is None:
+            ker = cuda_gram.gram_sym_bwd_kernel(x, d, s, l, kind, g)
         ref = cuda_gram.gram_sym_vjp_plain(x.double(), d.double(), s.double(), l.double(),
                                            kind, g.double(), needs)[1:]
         plain = (None,) * 3
@@ -379,15 +500,48 @@ def main():
         xm = mixed_rows(n_rows, 5, f64)
         check_k2_bwd("random cotangent", xm, d5, s5, l5, "mixed",
                      torch.randn(n_rows, n_rows, generator=gen, dtype=f64).to(dev))
-    # Every other template instance (kind x dtype) at the ragged N = 1037.
-    for dtype, kind in ((f32, "mixed"), (f32, "ff"), (f64, "ff"), (f64, "xx")):
-        d5, s5, l5 = kinetics(5, dtype)
-        xm = mixed_rows(1037, 5, dtype)
-        if kind != "mixed":  # all expression rows, or all force rows
-            xm[:, 2] = float(kind == "xx")
-            xm[:, 1] = torch.randint(0, 5, (1037,), generator=gen).to(dtype).to(dev)
-        check_k2_bwd("random cotangent", xm, d5, s5, l5, kind,
-                     torch.randn(1037, 1037, generator=gen, dtype=f64).to(dtype).to(dev))
+    # Every other template instance (kind x dtype) at the ragged N = 1037;
+    # with 50 genes at random, the per-entry erf path of 'xx' and 'mixed'.
+    for dtype, kind, genes in ((f32, "mixed", 5), (f32, "ff", 5), (f64, "ff", 5), (f64, "xx", 5),
+                               (f32, "xx", 50), (f32, "mixed", 50), (f64, "xx", 50),
+                               (f64, "mixed", 50)):
+        rng = gen50 if genes == 50 else gen
+        dk, sk, lk = kinetics(genes, dtype, rng)
+        xm = kind_rows(1037, genes, dtype, kind, rng)
+        check_k2_bwd(f"random cotangent, {genes} genes", xm, dk, sk, lk, kind,
+                     torch.randn(1037, 1037, generator=rng, dtype=f64).to(dtype).to(dev))
+    # The plain hoisted arithmetic that the kernels implement
+    # (cuda_gram.gram_sym_hoisted: per-row tables, per-entry terms,
+    # hand-derived adjoints) against the plain closed form on the card:
+    # the Gram within the kernels' limits (5e-5 f32, 1e-10 f64), exactly
+    # symmetric; the gradient per group against the f64 plain VJP within
+    # 1e-10 in f64, and in f32 within twice the f32 plain VJP's error or
+    # 4 f32 ulps (2.4e-7), whichever is larger: where neither sum cancels
+    # ('ff', N = 35) both sit at rounding level, and the plain's can land
+    # on the nearest float by chance.
+    HOISTED_F32_FLOOR = 4 * 2.0**-24
+    for dtype, atol in ((f32, 5e-5), (f64, 1e-10)):
+        for n_rows in (1037, 35):
+            for kind in cuda_gram.SYM_KINDS:
+                d5, s5, l5 = kinetics(5, dtype)
+                xm = kind_rows(n_rows, 5, dtype, kind)
+                g = torch.randn(n_rows, n_rows, generator=gen, dtype=f64).to(dtype).to(dev)
+                K, grads = cuda_gram.gram_sym_hoisted(xm, d5, s5, l5, kind, g)
+                ref = cuda_gram.gram_sym_plain(xm, d5, s5, l5, kind)
+                err = float((K - ref).abs().max())
+                symmetric = bool(torch.equal(K, K.T))
+                errs = grad_errors(xm, d5, s5, l5, kind, g, grads)
+                shown = "; ".join(f"{k} {e:.3e}" + ("" if p is None else f" (plain f32 {p:.3e})")
+                                  for k, (e, p) in errs.items())
+                print(f"[hoisted] plain hoisted form N={n_rows} {kind} {dtype}: Gram vs plain "
+                      f"closed form max abs err {err:.3e} (atol {atol:g}), exactly symmetric: "
+                      f"{symmetric}; gradient vs f64 plain VJP, rel to max: {shown}")
+                require(math.isfinite(err) and err <= atol and symmetric,
+                        f"hoisted {kind} {dtype} N={n_rows}: Gram {err}")
+                for k, (e, p) in errs.items():
+                    limit = 1e-10 if p is None else max(2 * p, HOISTED_F32_FLOOR)
+                    require(math.isfinite(e) and e <= limit,
+                            f"hoisted {kind} {dtype} N={n_rows} {k}: {e} (limit {limit})")
     # Force rows carry gene -1, clamped to 0 by the gathers: with no
     # expression row of gene 0, the kernel must credit gene 0 nothing.
     for dtype in (f32, f64):
@@ -408,18 +562,21 @@ def main():
     n = Xr.shape[0]
     needs = (False, True, True, True)
     b, by = bound_ms(input_bytes(Xr, d0, s0, l0, g_xla) + (2 * G + 1) * 8,
-                     n * (n + 1) // 2 * OPS_PER_XX_ENTRY_BWD)
+                     n * (n + 1) // 2 * OPS_PER_XX_ENTRY_BWD + n * OPS_ROW_BWD)
     records["K2bwd"] = dict(
         max_abs_err=max(float((k - r).abs().max()) for k, r in zip(
             cuda_gram.gram_sym_bwd_kernel(Xr, d0, s0, l0, "xx", g_xla),
             cuda_gram.gram_sym_vjp_plain(Xr, d0, s0, l0, "xx", g_xla, needs)[1:])),
         ms=cuda_ms(lambda: cuda_gram.gram_sym_bwd_kernel(Xr, d0, s0, l0, "xx", g_xla)),
+        back_to_back_ms=back_to_back_ms(
+            lambda: cuda_gram.gram_sym_bwd_kernel(Xr, d0, s0, l0, "xx", g_xla)),
         plain_ms=cuda_ms(lambda: cuda_gram.gram_sym_vjp_plain(Xr, d0, s0, l0, "xx", g_xla, needs),
                          reps=5),
         bound_ms=b, bound_by=by, library_ms=None,
         shape=f"{n}x{n} xx f32, the dense10k MLL cotangent",
     )
-    print(f"[K2 bwd] ms {records['K2bwd']['ms']:.4f} plain_ms {records['K2bwd']['plain_ms']:.4f} "
+    print(f"[K2 bwd] ms {records['K2bwd']['ms']:.4f} back_to_back_ms "
+          f"{records['K2bwd']['back_to_back_ms']:.4f} plain_ms {records['K2bwd']['plain_ms']:.4f} "
           f"bound_ms {b:.4f} ({by}) library_ms None")
     del g_xla
 
@@ -719,7 +876,8 @@ def main():
     del L_f64
 
     for name, r in records.items():
-        print(f"[{name}] {r['shape']}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+        b2b = f" back_to_back_ms {r['back_to_back_ms']:.4f}" if "back_to_back_ms" in r else ""
+        print(f"[{name}] {r['shape']}: ms {r['ms']:.4f}{b2b} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) library_ms {r['library_ms']}")
 
     # -- phase 3: the main paths, counts from 0 before each ------------------
@@ -816,6 +974,9 @@ def main():
     # TRSM is a product with the diagonal inverse), not the kernels'.
     print(f"[blocked engine] blocked_cholesky xla diag (no kernel): "
           f"{recon(cc.blocked_cholesky(sigma, block=512, diag='xla')):.3e}")
+    print(f"[blocked engine] blocked_cholesky pallas (K5) f32 N=1e4 B=512: ms "
+          f"{cuda_ms(lambda: cc.blocked_cholesky(sigma, block=512, diag='pallas'), reps=5):.4f} "
+          f"(its correction in float64)")
     del L_k5, L_k4, L_k6, L_k7
     plain_tril = cc.inv_from_factor_tril(L_t, diag_inv=dinvs, kernels=False)
     rel = float((tril_inv - plain_tril).abs().max()) / float(plain_tril.abs().max())
@@ -849,9 +1010,15 @@ def main():
         return port_main.DenseRun(result, model, base.data, base.X, base.y, base.var,
                                   step_seconds)
 
+    # Peak memory of a dense route: the allocator's peak during the run less
+    # what this script already held when the run began (the peak counter
+    # counts both).
+    held = {}
+
     def dense_route(impl, base=None):
         def run():
             torch.cuda.reset_peak_memory_stats(dev)
+            held[impl] = torch.cuda.memory_allocated(dev)
             if impl == "blocked":
                 return blocked_dense_steps(base)
             return port_main.run_dense(cfg.RunConfig(
@@ -862,14 +1029,15 @@ def main():
         if impl == "blocked":
             must += ("chol_inv_unblocked",)
         dense = drive(f"dense {impl}", run, must)
-        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        peak_gib = (torch.cuda.max_memory_allocated(dev) - held[impl]) / 2**30
         hist = dense.result.history.tolist()
         step_ms = [1e3 * s for s in dense.step_seconds]
         steady = statistics.median(step_ms[1:])
         q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
         print(f"[dense {impl}] N={dense.X.shape[0]} losses {hist}")
         print(f"[dense {impl}] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) "
-              f"{steady:.3f}, spread (interquartile) {q3 - q1:.3f}; peak memory {peak_gib:.3f} GiB")
+              f"{steady:.3f}, spread (interquartile) {q3 - q1:.3f}; peak memory {peak_gib:.3f} GiB "
+              f"(above the {held[impl] / 2**30:.3f} GiB held before the run)")
         require(all(math.isfinite(v) for v in hist), f"dense {impl} losses not finite")
         return dense, steady, q3 - q1, peak_gib
 
@@ -1021,7 +1189,7 @@ def main():
             "launches": main_counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
-            **({"peak": r["peak"]} if "peak" in r else {}),
+            **{k: r[k] for k in ("back_to_back_ms", "peak") if k in r},
         })
     print(f"[dense] step_ms_median xla {steady_xla!r} blocked {steady_blocked!r} "
           f"peak_memory_gib xla {peak_xla!r} blocked {peak_blocked!r}")
@@ -1035,4 +1203,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--times"] and len(sys.argv) == 3:
+        times(sys.argv[2])
+    elif len(sys.argv) == 1:
+        main()
+    else:
+        fail(f"usage: {sys.argv[0]} [--times ROOT]")

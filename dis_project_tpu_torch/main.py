@@ -11,9 +11,11 @@ says otherwise:
   ported yet.
 - ``--preset dense10k`` (:func:`run_dense`): a synthetic draw at
   N = genes x timepoints (50 x 200 = 1e4 by default), full-batch exact MLL
-  through the row path — the Gram kernel K2 forward, the custom MLL
-  backward with the SYRK kernel K3 in float32 — and Adam, with ground-truth
-  recovery metrics.
+  and Adam, with ground-truth recovery metrics. The Gram route is the JAX
+  package's, with the card in the TPU's place (:func:`dense_gram`): on the
+  card in float32 the row Gram — the kernel K2 and its backward, the custom
+  MLL backward with the SYRK kernel K3 — and elsewhere the table Gram of
+  ``ExactSIMM.mll_gridded``.
 
 Every other preset, engine, model family and flag of the JAX CLI fails with
 "not yet ported".
@@ -106,10 +108,19 @@ def synthetic_dense_data(genes: int, timepoints: int, seed: int, dtype, device):
     )
 
 
+def dense_gram(device, dtype) -> str:
+    """The dense route's Gram: ``'row'`` (K2 and its backward kernel) on
+    the card in float32, ``'gridded'`` (the table Gram) on the CPU or in
+    float64 — the JAX package's choice, which takes the row Gram only on
+    its accelerator in float32."""
+    on_card_f32 = torch.device(device).type == "cuda" and dtype == torch.float32
+    return "row" if on_card_f32 else "gridded"
+
+
 def run_dense(config: cfg.RunConfig) -> DenseRun:
     """Dense exact-GP stress run: synthetic first-order data at
-    N = genes x timepoints, full-batch exact MLL through the row path, Adam,
-    and ground-truth kinetics recovery."""
+    N = genes x timepoints, full-batch exact MLL through the Gram that
+    :func:`dense_gram` picks, Adam, and ground-truth kinetics recovery."""
     from dis_project_tpu_torch.data.dataset import train_arrays
     from dis_project_tpu_torch.models import simm
     from dis_project_tpu_torch.ops.precision import default_device, dtype_for
@@ -125,10 +136,14 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     X, y, var = train_arrays(data, dev, dtype)
 
     model = simm.ExactSIMM(num_genes=G, jitter=cfg.EXACT_JITTER, canonical_rows=True)
-    print(f"Training (full-batch exact MLL, row Gram, Cholesky engine, {dtype})...")
+    route = dense_gram(dev, dtype)
+    print(f"Training (full-batch exact MLL, {route} Gram, Cholesky engine, {dtype})...")
+    timepoints = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
 
     def objective(r):
-        return -model.mll(simm.constrain(r), X, y)
+        if route == "row":
+            return -model.mll(simm.constrain(r), X, y)
+        return -model.mll_gridded(simm.constrain(r), timepoints, y)
 
     optimizer = generic.Adam(0.01)
     raw = simm.unconstrain(simm.init_params(G, dtype=dtype, device=dev))

@@ -565,7 +565,7 @@ def blocked_cholesky(a, *, block: int | None = None, diag: str = "xla", matmul_d
     """Lower Cholesky factor, left-looking blocked (the float64 engine of
     the MLL and the ``diag=`` surface). For block column k:
 
-        C    = A[k:, k] - L[k:, :k] L[k, :k]ᵀ   # one large matmul
+        C    = A[k:, k] - L[k:, :k] L[k, :k]ᵀ   # one large matmul, in float64
         L_kk = chol(C[:B])                      # diagonal step
         L_k+1: = C[B:] L_kk⁻ᵀ                   # TRSM as a product
 
@@ -579,8 +579,11 @@ def blocked_cholesky(a, *, block: int | None = None, diag: str = "xla", matmul_d
     not a multiple of 128; ``'pallas'`` takes ``cholesky_ex`` in float64.
 
     ``matmul_dtype`` (e.g. ``torch.bfloat16``) rounds the operands of the
-    two panel products to that type, multiplied and accumulated in the
-    input's type. Sizes that are not a multiple of ``block`` are padded
+    two panel products to that type. The TRSM product is multiplied and
+    accumulated in the input's type; the correction, like every
+    correction, in float64, rounded to the input's type once. The JAX
+    package takes its correction in the working type (see the comment in
+    the loop). Sizes that are not a multiple of ``block`` are padded
     with an identity tail and sliced back. ``block=None``: 1024 from
     N=8192, else 512. ``return_diag_inv=True`` also returns the stacked
     (nb, B, B) diagonal-block inverses (identity on padded tails).
@@ -613,8 +616,12 @@ def blocked_cholesky(a, *, block: int | None = None, diag: str = "xla", matmul_d
     for off in range(0, npad, block):
         col = A[off:, off:off + block]
         if off:
-            left = rounded(L[off:, :off])
-            col = col - left @ left[:block].T
+            # The correction in float64, rounded once: in float32 the
+            # diagonal of the difference cancels, and on the real dense10k
+            # Σ at block 512 the factor reconstructed Σ ~2x worse than
+            # cuSOLVER's, largest on the diagonal (~0.2x in float64).
+            left = rounded(L[off:, :off]).double()
+            col = (col.double() - left @ left[:block].T).to(a.dtype)
         if diag == "pallas_inv":
             lkk, linv = chol_inv_unblocked(col[:block])
         else:

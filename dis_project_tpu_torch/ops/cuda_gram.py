@@ -12,7 +12,13 @@ Port of ``dis_project_tpu/ops/pallas_gram.py``:
   (:func:`gram_sym_bwd_kernel`), replacing the XLA fusion of
   ``pallas_gram.py::_gram_sym_bwd``: the gradient with respect to decay,
   sensitivity and lengthscale over the same lower tiles, reading both
-  triangles of the (not necessarily symmetric) cotangent.
+  triangles of the (not necessarily symmetric) cotangent, in reverse mode
+  written by hand.
+
+K2 and its backward evaluate the closed form in a hoisted arrangement: the
+terms that depend on one row only once per row, the rest per entry.
+:func:`gram_sym_hoisted` writes that arithmetic out in PyTorch, adjoints
+included; tests and ``chip_smoke.py`` hold it to the closed form.
 
 All take (t, gene, flag) rows, pack per-row ``[t, decay, sens, flag]``
 metadata (gene indices clamped, as ``ops.gram`` does) and evaluate the
@@ -38,6 +44,7 @@ import torch
 
 from dis_project_tpu_torch.ops import cuda_build
 from dis_project_tpu_torch.ops import gram as gram_ops
+from dis_project_tpu_torch.ops import lfm_kernels as lfk
 
 KIND_CODES = {"xx": 0, "ff": 1, "xf": 2, "fx": 3, "mixed": 4}
 # A square Gram is a covariance only for these populations; 'xf'/'fx' on one
@@ -188,6 +195,145 @@ def gram_sym_vjp_plain(x, decay, sens, lengthscale, kind, g, needs):
         lambda x, d, s, l: gram_ops.cross_covariance_kind(x, x, d, s, l, kind),
         (x, decay, sens, lengthscale), needs, g,
     )
+
+
+_TWO_OVER_SQRT_PI = 1.1283791670955126
+
+
+def _hoisted_rows(x, decay, sens, lengthscale):
+    """The one-index quantities K2 and its backward stage per row (the
+    kernels' ``RowQ``): t, t/l, D, S, flag, gamma = D l / 2,
+    E = exp(gamma^2), e = exp(-D t), r = e (erf(t/l - gamma) + erf(gamma)),
+    and r's derivatives in D and l."""
+    t, gi, f = gram_ops.split_rows(x)
+    l = lengthscale
+    D, S = gram_ops._gather(decay, gi), gram_ops._gather(sens, gi)
+    gam = D * l * 0.5
+    tl = t / l
+    E = torch.exp(gam * gam)
+    e = torch.exp(-D * t)
+    u = tl - gam
+    r = e * (torch.erf(u) + torch.erf(gam))
+    phi_u = _TWO_OVER_SQRT_PI * torch.exp(-(u * u))
+    phi_g = _TWO_OVER_SQRT_PI / E
+    r_D = -t * r + e * (l * 0.5) * (phi_g - phi_u)
+    r_l = e * (phi_u * (-tl / l - D * 0.5) + phi_g * (D * 0.5))
+    return dict(t=t, tl=tl, D=D, S=S, f=f, gam=gam, E=E, e=e, r=r, r_D=r_D, r_l=r_l)
+
+
+def gram_sym_hoisted(x, decay, sens, lengthscale, kind="mixed", g=None):
+    """Plain PyTorch version of the arithmetic of K2 and K2's backward in
+    ``csrc/simm_gram.cu``: the per-row tables, the per-entry terms and the
+    hand-derived reverse-mode adjoints, in the kernels' order. Only tests
+    and ``chip_smoke.py`` call it; it holds the derivation to the closed
+    form before any kernel runs.
+
+    Returns the exactly symmetric (N, N) Gram and, when a cotangent ``g``
+    (N, N, need not be symmetric) is given, also the gradient of
+    ``<g, K>`` with respect to ``(decay, sens, lengthscale)``: each entry's
+    partials in the working dtype, their products with the cotangent and
+    every sum after in float64, decay and sensitivity credited only from
+    the kind's expression rows, each to its clamped gene.
+
+    Entry (a, b), with delta = t_a - t_b, x = delta / l, q = 1/(D_a + D_b):
+    A1 = exp(-D_a delta) (erf(x - gamma_a) + erf(t_b/l + gamma_a)),
+    A2 = exp(D_b delta) (erf(-x - gamma_b) + erf(t_a/l + gamma_b)),
+    U = c l q (E_a (A1 - r_a e_b) + E_b (A2 - r_b e_a)), c = sqrt(pi)/2:
+    k_xx = S_a S_b U, k_xf = S_a c l E_a A1, k_fx = S_b c l E_b A2.
+    The kernels read erf(t_b/l + gamma_a) and erf(t_a/l + gamma_b) (and
+    their derivatives) from per-tile tables of (gamma, time) pairs where a
+    tile holds few distinct gammas: the same values, so not repeated here;
+    and they take q from the hardware reciprocal and one Newton step
+    (within an ulp of the quotient here)."""
+    _check_sym_kind(kind)
+    l = lengthscale
+    rows = _hoisted_rows(x, decay, sens, l)
+    a = {k: v[:, None] for k, v in rows.items()}
+    b = {k: v[None, :] for k, v in rows.items()}
+    delta = a["t"] - b["t"]
+    kff = torch.exp(-(delta * delta) / (2.0 * l))
+    cl = (0.5 * lfk.SQRT_PI) * l
+    if kind != "ff":
+        xq = delta / l
+        u1, u2 = xq - a["gam"], b["tl"] + a["gam"]
+        u3, u4 = -xq - b["gam"], a["tl"] + b["gam"]
+        X1, X2 = torch.exp(-a["D"] * delta), torch.exp(b["D"] * delta)
+        A1 = X1 * (torch.erf(u1) + torch.erf(u2))
+        A2 = X2 * (torch.erf(u3) + torch.erf(u4))
+        Pa, Pb = A1 - a["r"] * b["e"], A2 - b["r"] * a["e"]
+        q = 1.0 / (a["D"] + b["D"])
+        U = cl * q * (a["E"] * Pa + b["E"] * Pb)
+        Q1, Q2 = cl * a["E"] * A1, cl * b["E"] * A2
+    fa, fb = a["f"], b["f"]
+    w = {"xx": fa * fb, "ff": (1.0 - fa) * (1.0 - fb), "xf": fa * (1.0 - fb),
+         "fx": (1.0 - fa) * fb}
+    if kind == "xx":
+        K = a["S"] * b["S"] * U
+    elif kind == "ff":
+        K = kff
+    else:
+        K = (w["xx"] * (a["S"] * b["S"] * U) + w["ff"] * kff + w["xf"] * (a["S"] * Q1)
+             + w["fx"] * (b["S"] * Q2))
+    K = torch.tril(K) + torch.tril(K, -1).T
+    if g is None:
+        return K
+
+    # Reverse sweep from the seeds (adjoints of U, k_xf_u, k_fx_u, k_ff):
+    # each entry's partials of K, in the working dtype.
+    zero = torch.zeros_like(delta)
+    Ub, Q1b, Q2b, Fb = {
+        "xx": (a["S"] * b["S"], zero, zero, zero),
+        "ff": (zero, zero, zero, torch.ones_like(delta)),
+        "mixed": (w["xx"] * a["S"] * b["S"], w["xf"] * a["S"], w["fx"] * b["S"], w["ff"]),
+    }[kind]
+    il = 1.0 / l
+    p_l = Fb * kff * ((delta * delta) / (2.0 * l) / l)
+    p_Da = p_Db = p_Sa = p_Sb = zero
+    if kind != "ff":
+        Vb = Ub * cl * q
+        p_Da = p_Db = -Ub * U * q
+        p_l = p_l + (Ub * U + Q1b * Q1 + Q2b * Q2) * il
+        Ab1 = a["E"] * (Vb + Q1b * cl)
+        Ab2 = b["E"] * (Vb + Q2b * cl)
+        Eba = Vb * Pa + Q1b * cl * A1
+        Ebb = Vb * Pb + Q2b * cl * A2
+        Pba, Pbb = Vb * a["E"], Vb * b["E"]
+        rba, eb_b = -Pba * b["e"], -Pba * a["r"]
+        rbb, eb_a = -Pbb * a["e"], -Pbb * b["r"]
+        Fb12, Fb34 = Ab1 * X1, Ab2 * X2
+        phi = lambda u: _TWO_OVER_SQRT_PI * torch.exp(-(u * u))  # noqa: E731
+        ub1, ub2, ub3, ub4 = Fb12 * phi(u1), Fb12 * phi(u2), Fb34 * phi(u3), Fb34 * phi(u4)
+        s12, s34 = ub2 - ub1, ub4 - ub3
+        p_Da = (p_Da - delta * Ab1 * A1 + (l * 0.5) * s12
+                + Eba * (a["E"] * a["gam"] * l) + rba * a["r_D"] + eb_a * (-a["t"] * a["e"]))
+        p_Db = (p_Db + delta * Ab2 * A2 + (l * 0.5) * s34
+                + Ebb * (b["E"] * b["gam"] * l) + rbb * b["r_D"] + eb_b * (-b["t"] * b["e"]))
+        p_l = (p_l - (xq * (ub1 - ub3) + b["tl"] * ub2 + a["tl"] * ub4) * il
+               + (a["D"] * 0.5) * s12 + (b["D"] * 0.5) * s34
+               + Eba * (a["E"] * a["gam"] * a["D"]) + Ebb * (b["E"] * b["gam"] * b["D"])
+               + rba * a["r_l"] + rbb * b["r_l"])
+        if kind == "xx":
+            p_Sa, p_Sb = b["S"] * U, a["S"] * U
+        else:
+            p_Sa = w["xx"] * b["S"] * U + w["xf"] * Q1
+            p_Sb = w["xx"] * a["S"] * U + w["fx"] * Q2
+
+    # K2 writes tril(K) + tril(K, -1)^T: entry (a, b), a > b, carries
+    # g_ab + g_ba, the diagonal g_aa; float64 from here on.
+    g64 = g.to(torch.float64)
+    W = torch.tril(g64, -1) + torch.tril(g64.T, -1) + torch.diag(torch.diagonal(g64))
+    G = decay.shape[0]
+    gene = torch.clamp(x[:, 1].to(torch.long), 0, G - 1)
+    expr = torch.ones_like(rows["f"], dtype=torch.bool) if kind == "xx" else rows["f"] != 0
+    by_row = lambda pa, pb: (W * pa.double()).sum(1) + (W * pb.double()).sum(0)  # noqa: E731
+    grads = []
+    for pa, pb in ((p_Da, p_Db), (p_Sa, p_Sb)):
+        acc = torch.zeros(G, dtype=torch.float64, device=x.device)
+        if kind != "ff":
+            acc.index_add_(0, gene[expr], by_row(pa, pb)[expr])
+        grads.append(acc.to(x.dtype))
+    gl = (W * p_l.double()).sum().to(x.dtype).reshape(lengthscale.shape)
+    return K, (grads[0], grads[1], gl)
 
 
 def plain_vjp(fn, inputs, needs_grad, grad_out):

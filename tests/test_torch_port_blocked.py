@@ -130,6 +130,27 @@ def test_blocked_cholesky_bf16_operands_match_jax():
     _close(cc.blocked_cholesky(_t(A), block=256).double(), truth, 1e-5)
 
 
+def test_blocked_cholesky_bf16_rounds_the_correction_operands():
+    """The float64 correction of the second block column takes the
+    operands that matmul_dtype rounded: its diagonal block equals the
+    factor of A22 - r(L21) r(L21)ᵀ (r: rounding to bf16, the product in
+    float64), and lies far from the factor of the unrounded correction."""
+    B = 128
+    A = torch.as_tensor(_real_sigma(2 * B, seed=15, noise=1.0).astype(np.float32))
+    L = cc.blocked_cholesky(A, block=B, matmul_dtype=torch.bfloat16)
+    L21 = L[B:, :B]
+
+    def second_block(left):
+        left = left.double()
+        c = (A[B:, B:].double() - left @ left.T).to(torch.float32)
+        return torch.linalg.cholesky(c)
+
+    rounded = second_block(L21.to(torch.bfloat16).to(torch.float32))
+    _close(L[B:, B:], rounded.numpy(), 1e-6)
+    far = float((L[B:, B:] - second_block(L21)).abs().max()) / float(rounded.abs().max())
+    assert far > 1e-4, far
+
+
 @pytest.mark.parametrize("n,block,inner", [(700, 256, 128), (300, None, 64)])
 def test_blocked_cholesky_t_matches_jax(n, block, inner):
     """The upper factor (JAX leaves junk below the diagonal of its diagonal
