@@ -3,10 +3,10 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and ``nvcc``; it imports nothing of JAX or of the
-JAX package. ``python3 chip_smoke.py --times ROOT`` only times K2, K2's
-backward and ``blocked_cholesky`` at the dense10k shapes with the package
-under ``ROOT`` (:func:`times`): run it on a parent tree and on this one, in
-turns, to compare them. Phases (each raises on failure):
+JAX package. ``python3 chip_smoke.py --times ROOT`` only times K1, K2,
+K2's backward and ``blocked_cholesky`` at the dense10k shapes with the
+package under ``ROOT`` (:func:`times`): run it on a parent tree and on this
+one, in turns, to compare them. Phases (each raises on failure):
 
 1. Build the kernels from ``dis_project_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together); print the build seconds, the card's
@@ -15,8 +15,15 @@ turns, to compare them. Phases (each raises on failure):
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with the tolerance stated beside each check, and
    time kernel, plain version and the library call (where one exists) with
-   CUDA events (median of repeats; K2 and K2's backward also back to back,
-   :func:`back_to_back_ms`). K2 (``[K2]``) also on ragged N = 1037
+   CUDA events (median of repeats; K1, K2 and K2's backward also back to
+   back, :func:`back_to_back_ms`). K1 (``[K1]``) is timed at the dense
+   latent posterior's 1e4 x 200 'xf' and the dense expression posterior's
+   1e4 x 5000 'xx', and held, every kind in both types, to its two plain
+   versions (the closed form and ``cuda_gram.cross_covariance_hoisted``,
+   the hoisted arithmetic it implements) on those shapes, on the canonical
+   rows against 100 and 500 points, and on ragged row sets (1037 against
+   53 and 198, out-of-range genes, force rows, and 50 genes at random).
+   K2 (``[K2]``) also on ragged N = 1037
    and 35 for every kind and dtype, and with 50 genes at random (tiles with
    more distinct decays than its tables take). K2's backward kernel (``[K2
    bwd]``) is held per parameter group (decay, sens, lengthscale) to the
@@ -67,7 +74,12 @@ turns, to compare them. Phases (each raises on failure):
    - the dense10k route (``main.run_dense``, 50 x 200 = 1e4, float32,
      10 Adam steps), whose ``'auto'`` engine is ``'xla'``: per-step ms,
      their spread, peak memory (the run's own, above what the script holds);
-   - ``latent_predict`` at N = 1e4 on the 200-point training grid;
+   - ``latent_predict`` at N = 1e4 on the 200-point training grid (K1
+     'xf');
+   - ``multi_gene_predict`` at N = 1e4 on ``main.run``'s 100-point grid
+     for all 50 genes (K1 'xx' at 1e4 x 5000, K2 at 1e4 and 5000): mean and
+     covariance diagonal held to the same call through the plain versions
+     in float32 and in float64, the phase's time, its stages and K1's share;
    - the same 10 steps on the same data through
      ``ExactSIMM(chol_impl='blocked')``, with run_dense's training loop.
 4. Each dense route's first step against the plain float32 path (loss rel
@@ -102,19 +114,22 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 
-# FP32 operations per covariance entry by kind, each exp/erf counted as one
-# operation (a lower bound: CUDA's erff is itself a short polynomial). 'xf'
-# and 'fx' count K1's closed form (ops/lfm_kernels.py), which evaluates
-# everything per entry. 'xx', 'ff' and 'mixed' count K2's hoisted form
-# (csrc/simm_gram.cu, cuda_gram.gram_sym_hoisted): the per-entry terms of
-# one lower entry ('xx': delta, delta / l, the four erf arguments, the two
+# FP32 operations per covariance entry by kind of the hoisted form that K1
+# and K2 evaluate (csrc/simm_gram.cu, cuda_gram._hoisted_entries), each
+# exp/erf counted as one operation (a lower bound: CUDA's erff is itself a
+# short polynomial): 'xx': delta, delta / l, the four erf arguments, the two
 # exp with their products, the four erf, A1 and A2, A1 - r_a e_b and
 # A2 - r_b e_a, 1 / (D_a + D_b), U and S_a S_b U: 31; 'ff': delta^2, its
 # quotient by 2l and the exp: 4; 'mixed': both, k_xf and k_fx from A1 and
-# A2, the four flag weights and their sum: 55), plus OPS_PER_ROW once for
-# each row (gamma, t / l, E = exp(gamma^2), e = exp(-D t), the two erf of r
-# and r: 12), not once per tile as the kernel stages them.
-OPS_PER_ENTRY = {"xx": 31, "ff": 4, "xf": 20, "fx": 20, "mixed": 55}
+# A2, the four flag weights and their sum: 55. K2 counts them per lower
+# entry. K1 counts them per entry of all n m, and its 'xf' (k_xf = C_a A1)
+# and 'fx' (C_b A2) entries: delta, delta / l, the two erf arguments, the
+# exp with its product, the two erf, A1 (a sum and a product) and the
+# product with C: 11. Both add OPS_PER_ROW once for each row (gamma, t / l,
+# E = exp(gamma^2), e = exp(-D t), the two erf of r and r: 12), not once
+# per tile as the kernels stage them.
+OPS_PER_ENTRY = {"xx": 31, "ff": 4, "mixed": 55}
+K1_OPS_PER_ENTRY = {**OPS_PER_ENTRY, "xf": 11, "fx": 11}
 OPS_PER_ROW = 12
 # The operations K2's backward needs per lower 'xx' entry, counted the same
 # way for one reverse sweep over the hoisted form (cuda_gram.
@@ -191,13 +206,15 @@ def nvidia_smi_line():
 
 
 def times(root):
-    """``--times ROOT``: K2 and K2's backward, one call (:func:`cuda_ms`)
-    and back to back, and ``blocked_cholesky`` (float32, block 512, K5
-    diagonal steps) on the dense10k inputs at the init point (N = 1e4,
-    'xx', the 'xla' engine's MLL cotangent, the real Σ), with the
-    ``dis_project_tpu_torch`` under ``ROOT``: this checkout, or a parent
-    unpacked with ``git archive``, so that two trees are timed by the same
-    code. Prints one JSON line with the card's name and power limit."""
+    """``--times ROOT``: K1 (1e4 x 200 'xf' against the latent grid and
+    1e4 x 5000 'xx' against the expression grid), K2 and K2's backward, one
+    call (:func:`cuda_ms`) and back to back, and ``blocked_cholesky``
+    (float32, block 512, K5 diagonal steps) on the dense10k inputs at the
+    init point (N = 1e4, 'xx', the 'xla' engine's MLL cotangent, the real
+    Σ), with the ``dis_project_tpu_torch`` under ``ROOT``: this checkout, or
+    a parent unpacked with ``git archive``, so that two trees are timed by
+    the same code. Prints one JSON line with the card's name and power
+    limit."""
     sys.path.insert(0, root)
     import torch
 
@@ -211,6 +228,7 @@ def times(root):
     from dis_project_tpu_torch.ops import cuda_cholesky as cc
     from dis_project_tpu_torch.ops import mll as mll_ops
     from dis_project_tpu_torch.ops.precision import default_device
+    from dis_project_tpu_torch.utils.test_grids import expression_grid, latent_grid
 
     dev, f32 = default_device(), torch.float32
     cuda_build.build(["simm_gram", "chol_block"])
@@ -226,7 +244,12 @@ def times(root):
     g = torch.autograd.grad(loss, K)[0]
     sigma = sigma.detach()
     del K, loss
+    grid = latent_grid(T, dtype=f32, device=dev)
+    egrid = expression_grid(G, 100, dtype=f32, device=dev)
     calls = {
+        f"gram_rect {G * T}x{T} xf": lambda: cuda_gram.gram_rect_kernel(X, grid, d, s, l, "xf"),
+        f"gram_rect {G * T}x{G * 100} xx": lambda: cuda_gram.gram_rect_kernel(
+            X, egrid, d, s, l, "xx"),
         "gram_sym": lambda: cuda_gram.gram_sym_kernel(X, d, s, l, "xx"),
         "gram_sym_bwd": lambda: cuda_gram.gram_sym_bwd_kernel(X, d, s, l, "xx", g),
     }
@@ -314,26 +337,37 @@ def main():
 
     records = {}
 
-    def check_k1(x1, x2, d, s, l, kind, atol, timed):
+    def check_k1(label, x1, x2, d, s, l, kind, atol):
+        """K1 against both of its plain versions: the closed form
+        (``cross_covariance_kind``) and the hoisted arithmetic it
+        implements (``cross_covariance_hoisted``)."""
         ker = cuda_gram.gram_rect_kernel(x1, x2, d, s, l, kind)
         ref = gram_ops.cross_covariance_kind(x1, x2, d, s, l, kind)
+        hoisted = cuda_gram.cross_covariance_hoisted(x1, x2, d, s, l, kind)
         torch.cuda.synchronize()
         err = float((ker - ref).abs().max())
-        print(f"[K1] gram_rect {x1.shape[0]}x{x2.shape[0]} {kind} {x1.dtype}: "
-              f"max abs err {err:.3e} (atol {atol:g}), "
-              f"max rel err {err / float(ref.abs().max()):.3e}")
-        require(math.isfinite(err) and err <= atol, f"K1 {kind} disagrees: {err}")
-        if timed:
-            n, m = ker.shape
-            b, by = bound_ms(input_bytes(x1, x2, d, s, l) + ker.numel() * ker.element_size(),
-                             n * m * OPS_PER_ENTRY[kind])
-            records["K1"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: cuda_gram.gram_rect_kernel(x1, x2, d, s, l, kind)),
-                plain_ms=cuda_ms(lambda: gram_ops.cross_covariance_kind(x1, x2, d, s, l, kind)),
-                bound_ms=b, bound_by=by, library_ms=None,
-                shape=f"{n}x{m} {kind} f32",
-            )
+        err_h = float((ker - hoisted).abs().max())
+        print(f"[K1] gram_rect {label} {x1.shape[0]}x{x2.shape[0]} {kind} {x1.dtype}: max abs err "
+              f"vs closed form {err:.3e}, vs hoisted {err_h:.3e} (atol {atol:g}), max rel err "
+              f"{err / max(float(ref.abs().max()), 1e-300):.3e}")
+        require(math.isfinite(err) and err <= atol, f"K1 {label} {kind} disagrees: {err}")
+        require(math.isfinite(err_h) and err_h <= atol, f"K1 {label} {kind} vs hoisted: {err_h}")
+        return err
+
+    def time_k1(x1, x2, d, s, l, kind):
+        """One K1 record: one call and back to back, the plain closed form,
+        the bound of the hoisted form's operations and bytes."""
+        n, m = x1.shape[0], x2.shape[0]
+        call = lambda: cuda_gram.gram_rect_kernel(x1, x2, d, s, l, kind)  # noqa: E731
+        err = check_k1("timed", x1, x2, d, s, l, kind, 5e-5)
+        b, by = bound_ms(input_bytes(x1, x2, d, s, l) + n * m * x1.element_size(),
+                         n * m * K1_OPS_PER_ENTRY[kind] + (n + m) * OPS_PER_ROW)
+        rec = dict(max_abs_err=err, ms=cuda_ms(call), back_to_back_ms=back_to_back_ms(call),
+                   plain_ms=cuda_ms(lambda: gram_ops.cross_covariance_kind(x1, x2, d, s, l, kind)),
+                   bound_ms=b, bound_by=by, library_ms=None, shape=f"{n}x{m} {kind} f32")
+        print(f"[K1] {rec['shape']}: ms {rec['ms']:.4f} back_to_back_ms "
+              f"{rec['back_to_back_ms']:.4f} plain_ms {rec['plain_ms']:.4f} bound_ms {b:.5f} ({by})")
+        return rec
 
     def check_k2(x, d, s, l, kind, atol, timed):
         ker = cuda_gram.gram_sym_kernel(x, d, s, l, kind)
@@ -368,12 +402,15 @@ def main():
     Xd = dense_rows(G, T, f32)
     d32, s32, l32 = kinetics(G, f32)
     grid = latent_grid(200, dtype=f32, device=dev)
-    check_k1(Xd, grid, d32, s32, l32, "xf", 5e-5, timed=True)
+    egrid = expression_grid(G, 100, dtype=f32, device=dev)
+    # K1 at the main path's two shapes: the dense latent posterior's
+    # 1e4 x 200 'xf' and the dense expression posterior's 1e4 x 5000 'xx'.
+    k1_records = {rec["shape"]: rec for rec in (time_k1(Xd, grid, d32, s32, l32, "xf"),
+                                                time_k1(Xd, egrid, d32, s32, l32, "xx"))}
+    records["K1"] = {**k1_records[f"{Xd.shape[0]}x{egrid.shape[0]} xx f32"],
+                     "shapes": k1_records}
     for dtype, atol in ((f32, 5e-5), (f64, 1e-10)):
-        Xc = dense_rows(5, 7, dtype)
         d5, s5, l5 = kinetics(5, dtype)
-        check_k1(Xc, expression_grid(5, 100, dtype=dtype, device=dev), d5, s5, l5,
-                 "xx", atol, timed=False)
         check_k2(mixed_rows(1000, 5, dtype), d5, s5, l5, "mixed", atol, timed=False)
         # Ragged N: the 64-row tiles' masked edges and the scalar stores of a
         # row length that is not a whole number of 16-byte units. With 50
@@ -386,6 +423,41 @@ def main():
                 check_k2(kind_rows(n_rows, kin[0].shape[0], dtype, kind, rng), *kin, kind, atol,
                          timed=False)
     check_k2(Xd, d32, s32, l32, "xx", 5e-5, timed=True)
+
+    # K1, every kind in both types against both plain versions, on the main
+    # path's shapes (the dense rows against the latent and the expression
+    # grids; the canonical rows against 100 and 500 points) and on ragged
+    # ones: n = 1037 (masked row edges) against m = 53 (no 16-byte row in
+    # either type) and m = 198 (none in float32, a mostly full last tile),
+    # with genes G and G + 1 that clamp to G - 1 and force rows (gene -1);
+    # and with 50 genes at random (more than GCAP = 8 distinct decays a
+    # tile side: the per-entry erf path). Its own generator keeps the
+    # shared one's sequence as it was.
+    genk1 = torch.Generator().manual_seed(8)
+
+    def k1_rows(n, genes, dtype):
+        xm = mixed_rows(n, genes, dtype, genk1)
+        expr = xm[:, 2] == 1
+        xm[expr, 1] = torch.randint(0, genes + 2, (int(expr.sum()),), generator=genk1).to(
+            dtype).to(dev)
+        return xm
+
+    for dtype, atol in ((f32, 5e-5), (f64, 1e-10)):
+        kin5, kin50 = kinetics(5, dtype, genk1), kinetics(50, dtype, genk1)
+        Xc, _, _ = train_arrays(P53Data(replicate=0, source="synthetic", seed=0), dev, dtype)
+        Xdd = dense_rows(G, T, dtype)
+        shapes = (
+            ("dense latent", Xdd, latent_grid(T, dtype=dtype, device=dev), kin50),
+            ("dense expression", Xdd, expression_grid(G, 100, dtype=dtype, device=dev), kin50),
+            ("canonical latent", Xc, latent_grid(100, dtype=dtype, device=dev), kin5),
+            ("canonical expression", Xc, expression_grid(5, 100, dtype=dtype, device=dev), kin5),
+            ("ragged", k1_rows(1037, 5, dtype), k1_rows(53, 5, dtype), kin5),
+            ("ragged, 50 genes", k1_rows(1037, 50, dtype), k1_rows(53, 50, dtype), kin50),
+            ("ragged, m = 198", k1_rows(1037, 5, dtype), k1_rows(198, 5, dtype), kin5),
+        )
+        for label, x1, x2, kin in shapes:
+            for kind in cuda_gram.KIND_CODES:
+                check_k1(label, x1, x2, *kin, kind, atol)
 
     # K3, K4 and K5 on inputs from a REAL dense10k Sigma at the init params
     # (random A A^T + n I matrices are far better conditioned than a SIMM
@@ -1060,6 +1132,88 @@ def main():
     print(f"[dense] latent posterior at N={dense.X.shape[0]}: finite, "
           f"corr with generating force {corr:.4f}")
 
+    # The expression posterior at N = 1e4 on main.run's 100-point grid for
+    # every gene (50 x 100 = 5000 rows): K2 builds Kxx (1e4) and Ktt (5000),
+    # K1 the 1e4 x 5000 'xx' cross-covariance.
+    egrid = expression_grid(G, 100, dtype=f32, device=dev)
+    params = dense.result.params
+
+    def expression_route():
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dense.model.multi_gene_predict(params, egrid, dense.X, dense.y, dense.var)
+            torch.cuda.synchronize()
+            return out, 1e3 * (time.perf_counter() - t0)
+
+    epost, phase_ms = drive("dense expression posterior", expression_route,
+                            ("gram_rect", "gram_sym"))
+    n_e = egrid.shape[0]
+    require(epost.mean.shape == (n_e,) and epost.cov.shape == (n_e, n_e),
+            f"dense expression posterior has shape {tuple(epost.mean.shape)}")
+    require(bool(torch.isfinite(epost.mean).all() and torch.isfinite(epost.cov).all()),
+            "dense expression posterior not finite")
+    # Held to the same call through the plain versions on the card (float32)
+    # and to that call in float64: the kernels' mean and covariance diagonal
+    # may stand at most twice as far from the float64 call as the plain
+    # float32 call does, and their gap to the plain float32 call at most
+    # three times that distance (two float32 evaluations whose roundings
+    # differ, each amplified by the solve against Sigma).
+    plain_model = simm.ExactSIMM(num_genes=G, jitter=dense.model.jitter, canonical_rows=True,
+                                 kernels=False)
+    with torch.no_grad():
+        ref32 = plain_model.multi_gene_predict(params, egrid, dense.X, dense.y, dense.var)
+        ref64 = plain_model.multi_gene_predict(
+            type(params)(*(p.double() for p in params)), egrid.double(), dense.X.double(),
+            dense.y.double(), dense.var.double())
+    for what, ker, p32, p64 in (
+            ("mean", epost.mean, ref32.mean, ref64.mean),
+            ("covariance diagonal", torch.diagonal(epost.cov), torch.diagonal(ref32.cov),
+             torch.diagonal(ref64.cov))):
+        scale = float(p64.abs().max())
+        gap = float((ker.double() - p32.double()).abs().max()) / scale
+        e_ker = float((ker.double() - p64).abs().max()) / scale
+        e_plain = float((p32.double() - p64).abs().max()) / scale
+        print(f"[dense expression posterior] {what}: kernels vs plain f32 {gap:.3e} (limit 3x "
+              f"the plain's distance from f64: {3 * e_plain:.3e}); vs the f64 plain call: "
+              f"kernels {e_ker:.3e}, plain f32 {e_plain:.3e} (limit 2x); relative to "
+              f"max|f64| {scale:.4g}")
+        require(math.isfinite(gap) and gap <= 3 * e_plain,
+                f"expression posterior {what}: kernels vs plain {gap} > 3 x {e_plain}")
+        require(e_ker <= 2 * e_plain,
+                f"expression posterior {what} vs f64: kernels {e_ker} > 2 x {e_plain}")
+    del ref32, ref64, ker, p32, p64  # the diagonals are views of the covariances
+    # The phase's stages, each timed alone with CUDA events at the fit's
+    # parameters, and K1's share of the phase.
+    with torch.no_grad():
+        pd, ps, pl = params.decay, params.sensitivity, params.lengthscale
+        Kxx = cuda_gram.gram_sym_kernel(dense.X, pd, ps, pl, "xx")
+        sig_e = mll_ops.add_diagonal(Kxx, dense.var.reshape(-1) + params.obs_stddev**2)
+        L_e = mll_ops.cholesky(sig_e)
+        Ktt = cuda_gram.gram_sym_kernel(egrid, pd, ps, pl, "xx")
+        Kxt = cuda_gram.gram_rect_kernel(dense.X, egrid, pd, ps, pl, "xx")
+        solved = mll_ops.chol_solve(L_e, Kxt)
+        resid = dense.y.reshape(-1) - dense.model.mean_function(params, dense.X)
+        e_stages = {
+            "gram Kxx K2 (1e4)": lambda: cuda_gram.gram_sym_kernel(dense.X, pd, ps, pl, "xx"),
+            "add_diagonal": lambda: mll_ops.add_diagonal(
+                Kxx, dense.var.reshape(-1) + params.obs_stddev**2),
+            "cholesky (cuSOLVER)": lambda: mll_ops.cholesky(sig_e),
+            "gram Ktt K2 (5000)": lambda: cuda_gram.gram_sym_kernel(egrid, pd, ps, pl, "xx"),
+            "cross-covariance Kxt K1 (1e4 x 5000)": lambda: cuda_gram.gram_rect_kernel(
+                dense.X, egrid, pd, ps, pl, "xx"),
+            "chol_solve (5000 right-hand sides)": lambda: mll_ops.chol_solve(L_e, Kxt),
+            "mean (solved^T r)": lambda: solved.T @ resid,
+            "covariance (Ktt - Kxt^T solved)": lambda: Ktt - Kxt.T @ solved,
+        }
+        e_ms = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in e_stages.items()}
+    k1_ms = e_ms["cross-covariance Kxt K1 (1e4 x 5000)"]
+    print(f"[dense expression posterior] N={dense.X.shape[0]} x {n_e}: phase {phase_ms:.3f} ms "
+          f"(host clock, one call); stage ms {json.dumps(e_ms)}; sum "
+          f"{sum(e_ms.values()):.3f}; K1 {k1_ms:.4f} ms = {100 * k1_ms / phase_ms:.2f} % of "
+          f"the phase")
+    del epost, e_stages, Kxx, sig_e, L_e, Ktt, Kxt, solved
+
     dense_b, steady_blocked, spread_blocked, peak_blocked = dense_route("blocked", base=dense)
 
     # -- phase 4: each engine's first dense step vs the plain f32 path ------
@@ -1189,7 +1343,7 @@ def main():
             "launches": main_counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
-            **{k: r[k] for k in ("back_to_back_ms", "peak") if k in r},
+            **{k: r[k] for k in ("back_to_back_ms", "peak", "shapes") if k in r},
         })
     print(f"[dense] step_ms_median xla {steady_xla!r} blocked {steady_blocked!r} "
           f"peak_memory_gib xla {peak_xla!r} blocked {peak_blocked!r}")

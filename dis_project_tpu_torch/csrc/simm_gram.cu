@@ -8,49 +8,61 @@
 //
 // All evaluate the closed-form SIMM covariance (ops/lfm_kernels.py: k_xx,
 // k_xf, k_ff with the reference's 2l quirk, and the flag-weighted 'mixed'
-// combination) from packed per-row metadata [t, decay, sens, flag], laid out
-// as a (4, n) array, in float or double (the f64 build lets the canonical
-// goldens be checked on the card through the kernels).
+// combination) in float or double (the f64 build lets the canonical
+// goldens be checked on the card through the kernels), in one tile program:
+// one CTA of 256 threads per 64 x 64 tile, rows from one row set and
+// columns from another (K1) or the same (K2), each thread a 4 x 4 block in
+// registers.
 //
-// K1 (gram_rect_kernel) evaluates the whole closed form per entry, one CTA
-// per 32 x 32 tile.
-//
-// K2 (gram_sym_kernel) and its backward (gram_sym_bwd_kernel) evaluate once
-// per row what depends on one row only. For row a (time t, decay D, sens S,
-// gamma = D l / 2) a CTA stages in shared memory t, t/l, D, S, flag, gamma,
-// E = exp(gamma^2), e = exp(-D t) and r = e (erf(t/l - gamma) + erf(gamma)),
-// and for the backward r's derivatives in D and l (fill_table). An 'xx'
-// entry (a, b), delta = t_a - t_b, x = delta / l, is then
+// What depends on one row only is evaluated once per row. For row a (time
+// t, decay D, sens S, gamma = D l / 2) a CTA stages in shared memory t,
+// t/l, D, S, flag, gamma, E = exp(gamma^2), e = exp(-D t) and r = e (erf(t/l
+// - gamma) + erf(gamma)), for K1's 'xf' and 'fx' C = c l S E, and for the
+// backward r's derivatives in D and l (fill_table). K2 and its backward
+// read the rows packed as [t; decay; sens; flag], a (4, n) array; K1 reads
+// the (n, 3) [t, gene, flag] rows of each set and gathers decay and sens
+// itself, each gene clamped to [0, G-1] as ops/gram.py's gathers clamp it.
+// An 'xx' entry (a, b), delta = t_a - t_b, x = delta / l, is then
 //   A1 = exp(-D_a delta) (erf(x - gamma_a) + erf(t_b/l + gamma_a))
 //   A2 = exp( D_b delta) (erf(-x - gamma_b) + erf(t_a/l + gamma_b))
 //   k_xx = S_a S_b c l (E_a (A1 - r_a e_b) + E_b (A2 - r_b e_a)) / (D_a + D_b),
 // c = sqrt(pi)/2: 4 erf, 2 exp and one reciprocal, where the closed form
-// spends 8 erf, 6 exp and 2 divisions. k_xf and k_fx are c l E A1 and
-// c l E A2. exp(-D_a delta) stays one exponential (split into a row and a
-// column factor it overflows float once D t > 88). Every erf argument is
-// the plain version's bit for bit (delta / l rounded as the IEEE division
+// spends 8 erf, 6 exp and 2 divisions. k_xf = C_a A1 and k_fx = C_b A2: one
+// exp and two erf. exp(-D_a delta) stays one exponential (split into a row
+// and a column factor it overflows float once D t > 88). Every erf argument
+// is the plain version's bit for bit (delta / l rounded as the IEEE division
 // rounds it, by an FMA correction that needs no slow-path branch): erf's
-// rounding is amplified by exp(D |delta|) <= e^12 on rows over [0, 12],
-// and the kernels must round where the plain version does. Two of the four
-// erf depend on one time and one gamma (erf(t_b/l + gamma_a), erf(t_a/l +
-// gamma_b)): where a tile's rows and its columns each carry at most GCAP
-// distinct gammas (a gene-major layout holds one or two genes in 64 rows),
-// the CTA tabulates them per (gamma, time) pair (cross_tables), leaving 2
-// erf, 2 exp and the reciprocal per entry; other tiles evaluate all four.
+// rounding is amplified by exp(D |delta|) <= e^12 on rows over [0, 12], and
+// the kernels must round where the plain version does. One erf of A1 and
+// one of A2 depend on one time and one gamma (erf(t_b/l + gamma_a),
+// erf(t_a/l + gamma_b)): where the tile side whose gammas they take carries
+// at most GCAP distinct gammas (a gene-major layout holds one or two genes
+// in 64 rows), the CTA tabulates them per (gamma, time) pair
+// (cross_tables), leaving per entry 2 erf, 2 exp and the reciprocal of
+// 'xx', one erf and one exp of 'xf' and 'fx'; other tiles evaluate them all.
 //
-// K2 forward: one CTA of 256 threads per 64 x 64 lower tile (i, j), decoded
-// from the block index in single precision with integer fix-ups. Each
-// thread computes a 4 x 4 block in registers; a warp holds 4 x 8 such
-// blocks, so it writes the tile row by row as 16-byte stores of 8 lanes
-// (128 contiguous bytes a row) and, off the diagonal, the mirror tile
-// (j, i) from the same registers as 16-byte stores of 4 lanes (64 bytes a
-// row, whole 32-byte sectors): no shared-memory transpose. A diagonal tile
+// K1 (gram_rect_kernel): one CTA per 64 x 64 output tile (i, j) of the
+// (n, m) matrix, every tile a full one (no diagonal, nothing mirrored). The
+// kind is a template parameter (5 kinds x 2 types, no switch per entry):
+// 'xx' and 'mixed' take K2's per-entry terms (mid, sym_value), 'xf' only
+// A1, 'fx' only A2, 'ff' k_ff, and cross_tables builds only the table side
+// the kind reads. A warp holds 4 x 8 blocks, so it writes the tile row by
+// row as 16-byte stores of 8 lanes (128 contiguous bytes a row) where the
+// row length m is a whole number of 16-byte units; scalar stores otherwise
+// and at the edges, masked at n rows and m columns. What bounds it on the
+// H100: the 4 n m bytes written (200 MB at 1e4 x 5000 in f32, 0.06 ms at
+// 3.35 TB/s); its instructions take longer, as K2's do.
+//
+// K2 forward: one CTA per 64 x 64 lower tile (i, j), decoded from the block
+// index in single precision with integer fix-ups. Each thread's 4 x 4 block
+// is stored as K1 stores it and, off the diagonal, the mirror tile (j, i)
+// from the same registers as 16-byte stores of 4 lanes (64 bytes a row,
+// whole 32-byte sectors): no shared-memory transpose. A diagonal tile
 // computes the blocks on and below its diagonal and mirrors them, so the
-// Gram is exactly symmetric. Ragged edges are masked (scalar stores), and
-// a row length that is not a multiple of 16 bytes takes scalar stores.
-// What bounds it on the H100: 4 n^2 bytes written (400 MB at n = 1e4 in
-// f32, 0.12 ms at 3.35 TB/s); its instructions (erf is a polynomial of
-// ~30, both of its branches evaluated) take longer than that.
+// Gram is exactly symmetric. What bounds it on the H100: 4 n^2 bytes
+// written (400 MB at n = 1e4 in f32, 0.12 ms at 3.35 TB/s); its
+// instructions (erf is a polynomial of ~30, both of its branches
+// evaluated) take longer than that.
 //
 // K2's backward is reverse mode written by hand from that hoisted form. K2
 // writes tril(K) + tril(K, -1)^T, so the gradient of <g, K2(theta)> is
@@ -90,14 +102,11 @@
 
 namespace {
 
-constexpr int TILE = 32;          // K1: output tile edge
-constexpr int ROWS_PER_PASS = 8;  // K1: blockDim = (TILE, ROWS_PER_PASS)
-
-constexpr int STILE = 64;         // K2 and its backward: lower tile edge
+constexpr int STILE = 64;         // tile edge
 constexpr int STHREADS = 256;     // 8 warps, each 4 x 8 blocks of 4 x 4
-// CTAs an SM must hold (float instances; double takes 1): K2 at 3 (80
-// registers), its backward at 2 (128 registers; at 3 it spills), the
-// fastest of those tried on an H100 (PERF.md).
+// CTAs an SM must hold (float instances; double takes 1): K1 and K2 at 3
+// (80 registers), K2's backward at 2 (128 registers; at 3 it spills), the
+// fastest of those tried for K2 and its backward on an H100 (PERF.md).
 constexpr int K2_MIN_CTAS = 3;
 constexpr int K2BWD_MIN_CTAS = 2;
 constexpr double SQRT_PI = 1.7724538509055159;
@@ -111,116 +120,19 @@ __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
 
 // ---------------------------------------------------------------------------
-// K1: the whole closed form per entry.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct Row {
-  T t, d, s, f;
-};
-
-// Metadata of row r of a (4, n) [t; d; s; f] array.
-template <typename T>
-__device__ __forceinline__ Row<T> load_row(const T* __restrict__ meta, int n, int r) {
-  return Row<T>{meta[r], meta[n + r], meta[2 * n + r], meta[3 * n + r]};
-}
-
-// ops/lfm_kernels.py::h_term, same operation order.
-template <typename T>
-__device__ __forceinline__ T h_term(T da, T db, T t1, T t2, T l) {
-  const T gb = db * l * T(0.5);
-  const T td = t2 - t1;
-  const T mult = exp_(gb * gb) / (da + db);
-  const T first = exp_(-db * td) * (erf_(td / l - gb) + erf_(t1 / l + gb));
-  const T second = exp_(-(db * t2 + da * t1)) * (erf_(t2 / l - gb) + erf_(gb));
-  return mult * (first - second);
-}
-
-// k_xx without its sensitivities: k_xx = S_j S_k * k_xx_u.
-template <typename T>
-__device__ __forceinline__ T k_xx_u(T t, T tp, T dj, T dk, T l) {
-  return l * T(0.5 * SQRT_PI) * (h_term(dk, dj, tp, t, l) + h_term(dj, dk, t, tp, l));
-}
-
-// k_xf without its sensitivity: k_xf = S_j * k_xf_u.
-template <typename T>
-__device__ __forceinline__ T k_xf_u(T tx, T tf, T dj, T l) {
-  const T gj = dj * l * T(0.5);
-  const T td = tx - tf;
-  return T(0.5 * SQRT_PI) * l * exp_(gj * gj) * exp_(-dj * td) *
-         (erf_(td / l - gj) + erf_(tf / l + gj));
-}
-
-template <typename T>
-__device__ __forceinline__ T k_ff(T t, T tp, T l) {
-  const T diff = t - tp;
-  return exp_(-(diff * diff) / (T(2) * l));
-}
-
-// One covariance entry between row a and column b (pallas_gram._tile_values).
-template <int KIND, typename T>
-__device__ __forceinline__ T cov_k(const Row<T>& a, const Row<T>& b, T l) {
-  T xx = T(0), ff = T(0), xf = T(0), fx = T(0);
-  if (KIND == XX || KIND == MIXED) xx = a.s * b.s * k_xx_u(a.t, b.t, a.d, b.d, l);
-  if (KIND == FF || KIND == MIXED) ff = k_ff(a.t, b.t, l);
-  if (KIND == XF || KIND == MIXED) xf = a.s * k_xf_u(a.t, b.t, a.d, l);
-  if (KIND == FX || KIND == MIXED) fx = b.s * k_xf_u(b.t, a.t, b.d, l);
-  switch (KIND) {
-    case XX: return xx;
-    case FF: return ff;
-    case XF: return xf;
-    case FX: return fx;
-    default: {
-      const T w_xx = a.f * b.f;
-      const T w_ff = (T(1) - a.f) * (T(1) - b.f);
-      const T w_xf = a.f * (T(1) - b.f);
-      const T w_fx = (T(1) - a.f) * b.f;
-      return w_xx * xx + w_ff * ff + w_xf * xf + w_fx * fx;
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T cov(int kind, const Row<T>& a, const Row<T>& b, T l) {
-  switch (kind) {
-    case XX: return cov_k<XX>(a, b, l);
-    case FF: return cov_k<FF>(a, b, l);
-    case XF: return cov_k<XF>(a, b, l);
-    case FX: return cov_k<FX>(a, b, l);
-    default: return cov_k<MIXED>(a, b, l);
-  }
-}
-
-// K1: one block per (TILE x TILE) output tile of the (n, m) matrix.
-template <typename T>
-__global__ void __launch_bounds__(TILE * ROWS_PER_PASS)
-gram_rect_kernel(const T* __restrict__ m1, int n, const T* __restrict__ m2, int m,
-                 const T* __restrict__ ell, T* __restrict__ out, int kind) {
-  const int col = blockIdx.x * TILE + threadIdx.x;
-  if (col >= m) return;
-  const T l = *ell;
-  const Row<T> b = load_row(m2, m, col);
-  const int row0 = blockIdx.y * TILE;
-  for (int r = threadIdx.y; r < TILE; r += ROWS_PER_PASS) {
-    const int row = row0 + r;
-    if (row >= n) break;
-    out[(size_t)row * m + col] = cov(kind, load_row(m1, n, row), b, l);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2 and its backward: one-index terms per row, per-entry terms per entry.
+// The tile program: one-index terms per row, per-entry terms per entry.
 // ---------------------------------------------------------------------------
 
 // The per-row quantities, staged in shared memory as tab[quantity][slot]:
 // slots [0, STILE) are the tile's rows (block i), [STILE, 2 STILE) its
 // columns (block j).
-enum Quantity { QT, QTL, QD, QS, QF, QGAM, QE, QEX, QR, QRD, QRL, NQ };
-constexpr int NQ_FWD = QRD;  // the forward needs no derivatives
+enum Quantity { QT, QTL, QD, QS, QF, QGAM, QE, QEX, QR, QC, QRD, QRL, NQ };
+constexpr int NQ_SYM = QC;    // K2's forward: no C, no derivatives
+constexpr int NQ_RECT = QRD;  // K1: C for 'xf' and 'fx', no derivatives
 
 template <typename T>
 struct RowQ {
-  T t, tl, D, S, f, gam, E, e, r, rD, rl;
+  T t, tl, D, S, f, gam, E, e, r, C, rD, rl;
   int g;  // index of gam among the distinct gammas of its side (cross_tables)
 };
 
@@ -238,7 +150,9 @@ __device__ __forceinline__ RowQ<T> row_q(const T (*tab)[2 * STILE], const int* g
   q.E = tab[QE][slot];
   q.e = tab[QEX][slot];
   q.r = tab[QR][slot];
-  if (NQT > QRD) {
+  q.C = T(0);
+  if constexpr (NQT == NQ_RECT) q.C = tab[QC][slot];
+  if constexpr (NQT > QRD) {
     q.rD = tab[QRD][slot];
     q.rl = tab[QRL][slot];
   } else {
@@ -252,24 +166,53 @@ __device__ __forceinline__ bool expression_row(float flag) {
   return KIND == XX || (KIND == MIXED && flag != 0.f);
 }
 
-// Threads 0..2 STILE-1 fill one slot each: rows of block i, then columns of
-// block j; a slot past n gets finite placeholder values (its entries are
-// masked). With `key`, also the gene bin the slot credits (-1: none).
-template <typename T, int NQT, int KIND>
-__device__ __forceinline__ void fill_table(T (*tab)[2 * STILE], int* key,
-                                           const T* __restrict__ meta,
-                                           const int* __restrict__ gene, int n, int G,
-                                           int i, int j, T l) {
-  const int slot = threadIdx.x;
-  if (slot >= 2 * STILE) return;
-  const int idx = slot < STILE ? i * STILE + slot : j * STILE + slot - STILE;
-  T t = T(0), D = T(1), S = T(0), f = T(0);
-  if (idx < n) {
+// Row sources of fill_table: rows packed as a (4, n) [t; decay; sens; flag]
+// array (K2 and its backward), or (n, 3) [t, gene, flag] rows whose decay
+// and sens are gathered here, the gene truncated to an integer and clamped
+// to [0, G-1] (K1; ops/gram.py's split_rows and _gather).
+template <typename T>
+struct PackedRows {
+  const T* __restrict__ meta;
+  int n;
+  __device__ __forceinline__ void load(int idx, T& t, T& D, T& S, T& f) const {
     t = meta[idx];
     D = meta[n + idx];
     S = meta[2 * n + idx];
     f = meta[3 * n + idx];
   }
+};
+
+template <typename T>
+struct GatherRows {
+  const T* __restrict__ x;
+  int n;
+  const T* __restrict__ decay;
+  const T* __restrict__ sens;
+  int G;
+  __device__ __forceinline__ void load(int idx, T& t, T& D, T& S, T& f) const {
+    const int g = min(max((int)x[3 * idx + 1], 0), G - 1);
+    t = x[3 * idx];
+    D = decay[g];
+    S = sens[g];
+    f = x[3 * idx + 2];
+  }
+};
+
+// Threads 0..2 STILE-1 fill one slot each: rows of block i from `rows`,
+// then columns of block j from `cols`; a slot past its set's end gets
+// finite placeholder values (its entries are masked). With `key`, also the
+// gene bin the slot credits (-1: none; K2's backward, rows == cols).
+template <typename T, int NQT, int KIND, typename Src>
+__device__ __forceinline__ void fill_table(T (*tab)[2 * STILE], int* key, const Src& rows,
+                                           const Src& cols, const int* __restrict__ gene,
+                                           int G, int i, int j, T l) {
+  const int slot = threadIdx.x;
+  if (slot >= 2 * STILE) return;
+  const bool col = slot >= STILE;
+  const int idx = col ? j * STILE + slot - STILE : i * STILE + slot;
+  const bool in = idx < (col ? cols.n : rows.n);
+  T t = T(0), D = T(1), S = T(0), f = T(0);
+  if (in) (col ? cols : rows).load(idx, t, D, S, f);
   const T gam = D * l * T(0.5);
   const T tl = t / l;
   const T E = exp_(gam * gam);
@@ -285,14 +228,15 @@ __device__ __forceinline__ void fill_table(T (*tab)[2 * STILE], int* key,
   tab[QE][slot] = E;
   tab[QEX][slot] = e;
   tab[QR][slot] = r;
-  if (NQT > QRD) {
+  if constexpr (NQT == NQ_RECT) tab[QC][slot] = T(0.5 * SQRT_PI) * l * S * E;
+  if constexpr (NQT > QRD) {
     const T phi_u = T(TWO_OVER_SQRT_PI) * exp_(-(u * u));
     const T phi_g = T(TWO_OVER_SQRT_PI) / E;
     tab[QRD][slot] = -t * r + e * (l * T(0.5)) * (phi_g - phi_u);
     tab[QRL][slot] = e * (phi_u * (-tl / l - D * T(0.5)) + phi_g * (D * T(0.5)));
   }
   if (key != nullptr) {
-    const bool credits = idx < n && expression_row<KIND>((float)f);
+    const bool credits = in && expression_row<KIND>((float)f);
     key[slot] = credits ? min(max(gene[idx], 0), G - 1) : -1;
   }
 }
@@ -306,6 +250,9 @@ __device__ __forceinline__ float div_rn(float a, float b, float ib) {
   return fmaf(fmaf(-q, b, a), ib, q);
 }
 __device__ __forceinline__ double div_rn(double a, double b, double) { return a / b; }
+
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
 
 // 1 / s to ~1 ulp without a branch: the hardware reciprocal and one Newton
 // step (s = D_a + D_b > 0; not on the erf arguments).
@@ -327,12 +274,19 @@ __device__ __forceinline__ Scale<T> scale(T l) {
 }
 
 // The two erf terms of an entry that depend on one time and one gamma,
-// erf(u2), u2 = t_b/l + gamma_a, and erf(u4), u4 = t_a/l + gamma_b, and
-// for the backward their derivatives 2/sqrt(pi) exp(-u^2). A tile whose
-// rows and columns carry at most GCAP distinct gammas each reads them from
-// tables of (gamma, time) pairs (cross_tables): the same values bit for
-// bit, computed once per pair instead of once per entry.
+// erf(u2), u2 = t_b/l + gamma_a (side 0: A1's), and erf(u4), u4 = t_a/l +
+// gamma_b (side 1: A2's), and for the backward their derivatives
+// 2/sqrt(pi) exp(-u^2). A kind reads the sides in SIDES (bit 0 side 0, bit
+// 1 side 1). A tile whose sides read carry at most GCAP distinct gammas
+// each reads them from tables of (gamma, time) pairs (cross_tables): the
+// same values bit for bit, computed once per pair instead of once per
+// entry.
 constexpr int GCAP = 8;
+
+template <int KIND>
+__host__ __device__ constexpr int cross_sides() {
+  return KIND == FF ? 0 : KIND == XF ? 1 : KIND == FX ? 2 : 3;
+}
 
 template <typename T>
 struct Cross {
@@ -348,21 +302,21 @@ struct CrossTables {
   T (*phi)[GCAP][STILE];
 };
 
-template <bool TABLE, bool BWD, typename T>
+template <bool TABLE, bool BWD, int SIDES, typename T>
 __device__ __forceinline__ Cross<T> cross_terms(const RowQ<T>& a, const RowQ<T>& b, int ra,
                                                 int cb, const CrossTables<T>& ct) {
   Cross<T> c{};
   if (TABLE) {
-    c.f2 = ct.erf[0][a.g][cb];
-    c.f4 = ct.erf[1][b.g][ra];
+    if (SIDES & 1) c.f2 = ct.erf[0][a.g][cb];
+    if (SIDES & 2) c.f4 = ct.erf[1][b.g][ra];
     if (BWD) {
       c.p2 = ct.phi[0][a.g][cb];
       c.p4 = ct.phi[1][b.g][ra];
     }
   } else {
     const T u2 = b.tl + a.gam, u4 = a.tl + b.gam;
-    c.f2 = erf_(u2);
-    c.f4 = erf_(u4);
+    if (SIDES & 1) c.f2 = erf_(u2);
+    if (SIDES & 2) c.f4 = erf_(u4);
     if (BWD) {
       c.p2 = T(TWO_OVER_SQRT_PI) * exp_(-(u2 * u2));
       c.p4 = T(TWO_OVER_SQRT_PI) * exp_(-(u4 * u4));
@@ -371,10 +325,11 @@ __device__ __forceinline__ Cross<T> cross_terms(const RowQ<T>& a, const RowQ<T>&
   return c;
 }
 
-// Lists the distinct gammas of each side (warp 0 the rows, warp 1 the
-// columns) and, when neither side has more than GCAP, fills the tables.
-// Every thread calls it; returns whether the tables hold (CTA-uniform).
-template <typename T, bool BWD>
+// Lists the distinct gammas of each side in SIDES (warp 0 the rows, warp 1
+// the columns) and, when no such side has more than GCAP, fills its
+// tables. Every thread calls it; returns whether the tables hold
+// (CTA-uniform).
+template <typename T, bool BWD, int SIDES>
 __device__ __forceinline__ bool cross_tables(const T (*tab)[2 * STILE], int* gslot,
                                              T (*dgam)[GCAP], int* ndist,
                                              const CrossTables<T>& ct) {
@@ -382,7 +337,8 @@ __device__ __forceinline__ bool cross_tables(const T (*tab)[2 * STILE], int* gsl
   if (warp < 2) {
     const int base = warp * STILE;
     const T g0 = tab[QGAM][base + lane], g1 = tab[QGAM][base + 32 + lane];
-    int i0 = -1, i1 = -1, nd = 0;
+    const bool used = (SIDES >> warp) & 1;  // warp-uniform
+    int i0 = used ? -1 : 0, i1 = used ? -1 : 0, nd = 0;
     for (;;) {
       const unsigned m0 = __ballot_sync(0xffffffffu, i0 < 0);
       const unsigned m1 = __ballot_sync(0xffffffffu, i1 < 0);
@@ -419,13 +375,13 @@ __device__ __forceinline__ bool cross_tables(const T (*tab)[2 * STILE], int* gsl
 }
 
 // The per-entry terms of row a and column b (ops/cuda_gram.py::
-// gram_sym_hoisted writes the same arithmetic in PyTorch).
+// _hoisted_entries writes the same arithmetic in PyTorch).
 template <typename T>
 struct Mid {
   T delta, x, u1, u3, X1, X2, A1, A2, Pa, Pb, q, U, Q1, Q2, kff;
 };
 
-template <int KIND, typename T>
+template <int KIND, bool BWD, typename T>
 __device__ __forceinline__ Mid<T> mid(const RowQ<T>& a, const RowQ<T>& b, const Scale<T>& k,
                                       const Cross<T>& c) {
   Mid<T> m{};
@@ -437,10 +393,21 @@ __device__ __forceinline__ Mid<T> mid(const RowQ<T>& a, const RowQ<T>& b, const 
   m.u3 = -m.x - b.gam;
   m.X1 = exp_(-a.D * m.delta);
   m.X2 = exp_(b.D * m.delta);
-  m.A1 = m.X1 * (erf_(m.u1) + c.f2);
-  m.A2 = m.X2 * (erf_(m.u3) + c.f4);
-  m.Pa = m.A1 - a.r * b.e;
-  m.Pb = m.A2 - b.r * a.e;
+  const T s1 = erf_(m.u1) + c.f2, s3 = erf_(m.u3) + c.f4;
+  m.A1 = m.X1 * s1;
+  m.A2 = m.X2 * s3;
+  if constexpr (KIND == XX && sizeof(T) == 4) {
+    // Both contractions written out: left to the compiler, its choice of
+    // which product to fuse moved with the code around it and changed the
+    // last bits of K2's float 'xx' Gram. These are the forms K2 and its
+    // backward were first measured with (the backward, where A1 and A2
+    // have further uses, fuses r e in both).
+    m.Pa = fma_(-a.r, b.e, m.A1);
+    m.Pb = BWD ? fma_(-b.r, a.e, m.A2) : fma_(m.X2, s3, -(b.r * a.e));
+  } else {
+    m.Pa = m.A1 - a.r * b.e;
+    m.Pb = m.A2 - b.r * a.e;
+  }
   m.q = rcp_(a.D + b.D);
   m.U = k.cl * m.q * (a.E * m.Pa + b.E * m.Pb);
   if (KIND == MIXED) {
@@ -463,11 +430,27 @@ __device__ __forceinline__ Weights<T> weights(T fa, T fb) {
 template <int KIND, typename T>
 __device__ __forceinline__ T sym_value(const RowQ<T>& a, const RowQ<T>& b, const Scale<T>& k,
                                        const Cross<T>& c) {
-  const Mid<T> m = mid<KIND>(a, b, k, c);
+  const Mid<T> m = mid<KIND, false>(a, b, k, c);
   if (KIND == XX) return a.S * b.S * m.U;
   if (KIND == FF) return m.kff;
   const Weights<T> w = weights(a.f, b.f);
   return w.xx * (a.S * b.S * m.U) + w.ff * m.kff + w.xf * (a.S * m.Q1) + w.fx * (b.S * m.Q2);
+}
+
+// One entry of any kind: 'xf' is k_xf(t_a, t_b) = C_a A1 and 'fx' is
+// k_fx = C_b A2, each one exp and its side's erf terms; the other kinds
+// are K2's.
+template <int KIND, typename T>
+__device__ __forceinline__ T entry_value(const RowQ<T>& a, const RowQ<T>& b, const Scale<T>& k,
+                                         const Cross<T>& c) {
+  if constexpr (KIND == XF || KIND == FX) {
+    const T delta = a.t - b.t;
+    const T x = div_rn(delta, k.l, k.il);
+    if constexpr (KIND == XF) return a.C * (exp_(-a.D * delta) * (erf_(x - a.gam) + c.f2));
+    else return b.C * (exp_(b.D * delta) * (erf_(-x - b.gam) + c.f4));
+  } else {
+    return sym_value<KIND>(a, b, k, c);
+  }
 }
 
 // 16-byte vector access to four consecutive values (two for double).
@@ -488,39 +471,40 @@ __device__ __forceinline__ void ld4(const double* p, double* v) {
   v[0] = x.x, v[1] = x.y, v[2] = y.x, v[3] = y.y;
 }
 
-// Whether a 4 x 4 block at (r0, c0) lies inside the n x n matrix and its
-// rows can take 16-byte accesses (a row length of whole 16-byte units).
+// Whether a 4 x 4 block at (r0, c0) lies inside the rows x cols matrix and
+// its rows can take 16-byte accesses (a row length of whole 16-byte units).
 template <typename T>
-__device__ __forceinline__ bool vector_block(int n, int r0, int c0) {
-  return n % (16 / (int)sizeof(T)) == 0 && r0 + 3 < n && c0 + 3 < n;
+__device__ __forceinline__ bool vector_block(int rows, int cols, int r0, int c0) {
+  return cols % (16 / (int)sizeof(T)) == 0 && r0 + 3 < rows && c0 + 3 < cols;
 }
 
-// Store the 4 x 4 block v (or its transpose) at (r0, c0), masked at n.
+// Store the 4 x 4 block v (or its transpose) at (r0, c0) of the row-major
+// rows x cols matrix, masked at its edges.
 template <typename T, bool TRANSPOSE>
-__device__ __forceinline__ void store_block(T* __restrict__ out, int n, int r0, int c0,
-                                            const T (&v)[4][4]) {
-  const bool vec = vector_block<T>(n, r0, c0);
+__device__ __forceinline__ void store_block(T* __restrict__ out, int rows, int cols, int r0,
+                                            int c0, const T (&v)[4][4]) {
+  const bool vec = vector_block<T>(rows, cols, r0, c0);
 #pragma unroll
   for (int rr = 0; rr < 4; ++rr) {
     T x[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) x[k] = TRANSPOSE ? v[k][rr] : v[rr][k];
-    T* p = out + (size_t)(r0 + rr) * n + c0;
+    T* p = out + (size_t)(r0 + rr) * cols + c0;
     if (vec) {
       st4(p, x[0], x[1], x[2], x[3]);
-    } else if (r0 + rr < n) {
+    } else if (r0 + rr < rows) {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (c0 + k < n) p[k] = x[k];
+        if (c0 + k < cols) p[k] = x[k];
     }
   }
 }
 
-// Load the 4 x 4 block of g at (r0, c0), zero outside n.
+// Load the 4 x 4 block of the n x n matrix g at (r0, c0), zero outside n.
 template <typename T>
 __device__ __forceinline__ void load_block(const T* __restrict__ g, int n, int r0, int c0,
                                            T (&v)[4][4]) {
-  const bool vec = vector_block<T>(n, r0, c0);
+  const bool vec = vector_block<T>(n, n, r0, c0);
 #pragma unroll
   for (int rr = 0; rr < 4; ++rr) {
     const T* p = g + (size_t)(r0 + rr) * n + c0;
@@ -561,22 +545,71 @@ __device__ __forceinline__ Owner owner() {
 }
 
 // The 4 x 4 block of values of one thread (rows 4 rg.., columns 4 cg..).
-template <int KIND, bool TABLE, typename T>
-__device__ __forceinline__ void sym_block(const T (*tab)[2 * STILE], const int* gslot,
-                                          const CrossTables<T>& ct, const Owner& o,
-                                          const Scale<T>& k, T (&v)[4][4]) {
+template <int KIND, bool TABLE, int NQT, typename T>
+__device__ __forceinline__ void tile_block(const T (*tab)[2 * STILE], const int* gslot,
+                                           const CrossTables<T>& ct, const Owner& o,
+                                           const Scale<T>& k, T (&v)[4][4]) {
   RowQ<T> b[4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) b[kk] = row_q<T, NQ_FWD>(tab, gslot, STILE + 4 * o.cg + kk);
+  for (int kk = 0; kk < 4; ++kk) b[kk] = row_q<T, NQT>(tab, gslot, STILE + 4 * o.cg + kk);
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
-    const RowQ<T> a = row_q<T, NQ_FWD>(tab, gslot, 4 * o.rg + ii);
+    const RowQ<T> a = row_q<T, NQT>(tab, gslot, 4 * o.rg + ii);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const Cross<T> c = cross_terms<TABLE, false>(a, b[kk], 4 * o.rg + ii, 4 * o.cg + kk, ct);
-      v[ii][kk] = sym_value<KIND>(a, b[kk], k, c);
+      const Cross<T> c = cross_terms<TABLE, false, cross_sides<KIND>()>(
+          a, b[kk], 4 * o.rg + ii, 4 * o.cg + kk, ct);
+      v[ii][kk] = entry_value<KIND>(a, b[kk], k, c);
     }
   }
+}
+
+// The shared memory of one forward tile: the per-row table, the
+// (gamma, time) tables and each side's distinct gammas.
+template <typename T, int NQT>
+struct ForwardTile {
+  __align__(16) T tab[NQT][2 * STILE];
+  T cerf[2][GCAP][STILE];
+  T dgam[2][GCAP];
+  int gslot[2 * STILE];
+  int ndist[2];
+};
+
+// One forward tile (i, j): stages the rows' and the (gamma, time) tables,
+// then this thread's 4 x 4 block into v. Every thread calls it (it holds
+// barriers); an inactive one computes no block.
+template <typename T, int NQT, int KIND, typename Src>
+__device__ __forceinline__ void forward_tile(ForwardTile<T, NQT>& sm, const Src& rows,
+                                             const Src& cols, int i, int j, T l,
+                                             const Owner& o, bool active, T (&v)[4][4]) {
+  fill_table<T, NQT, KIND>(sm.tab, nullptr, rows, cols, nullptr, 1, i, j, l);
+  __syncthreads();
+  const CrossTables<T> ct{sm.cerf, nullptr};
+  const bool table =
+      KIND != FF && cross_tables<T, false, cross_sides<KIND>()>(sm.tab, sm.gslot, sm.dgam,
+                                                                sm.ndist, ct);
+  if (!active) return;
+  const Scale<T> k = scale(l);
+  if (table)
+    tile_block<KIND, true, NQT>(sm.tab, sm.gslot, ct, o, k, v);
+  else
+    tile_block<KIND, false, NQT>(sm.tab, sm.gslot, ct, o, k, v);
+}
+
+// K1: one CTA per 64 x 64 tile (blockIdx.y, blockIdx.x) of the (n, m)
+// covariance between the rows x1 and x2 ((n, 3) and (m, 3)).
+template <typename T, int KIND>
+__global__ void __launch_bounds__(STHREADS, sizeof(T) == 4 ? K2_MIN_CTAS : 1)
+gram_rect_kernel(const T* __restrict__ x1, int n, const T* __restrict__ x2, int m,
+                 const T* __restrict__ decay, const T* __restrict__ sens, int G,
+                 const T* __restrict__ ell, T* __restrict__ out) {
+  __shared__ ForwardTile<T, NQ_RECT> sm;
+  const int i = blockIdx.y, j = blockIdx.x;
+  const Owner o = owner();
+  T v[4][4];
+  forward_tile<T, NQ_RECT, KIND>(sm, GatherRows<T>{x1, n, decay, sens, G},
+                                 GatherRows<T>{x2, m, decay, sens, G}, i, j, *ell, o, true, v);
+  store_block<T, false>(out, n, m, i * STILE + 4 * o.rg, j * STILE + 4 * o.cg, v);
 }
 
 // K2: one CTA per lower tile (i, j); writes tile (i, j) and, off the
@@ -585,47 +618,49 @@ template <typename T, int KIND>
 __global__ void __launch_bounds__(STHREADS, sizeof(T) == 4 ? K2_MIN_CTAS : 1)
 gram_sym_kernel(const T* __restrict__ meta, int n, const T* __restrict__ ell,
                 T* __restrict__ out) {
-  __shared__ __align__(16) T tab[NQ_FWD][2 * STILE];
-  __shared__ T cerf[2][GCAP][STILE];
-  __shared__ T dgam[2][GCAP];
-  __shared__ int gslot[2 * STILE];
-  __shared__ int ndist[2];
+  __shared__ ForwardTile<T, NQ_SYM> sm;
   int i, j;
   tril_tile(blockIdx.x, &i, &j);
-  const T l = *ell;
-  fill_table<T, NQ_FWD, KIND>(tab, nullptr, meta, nullptr, n, 1, i, j, l);
-  __syncthreads();
-  const CrossTables<T> ct{cerf, nullptr};
-  const bool table = KIND != FF && cross_tables<T, false>(tab, gslot, dgam, ndist, ct);
   const Owner o = owner();
-  // In a diagonal tile a block above the diagonal is the mirror of one below.
-  if (i == j && o.rg < o.cg) return;
-  const Scale<T> k = scale(l);
+  const PackedRows<T> rows{meta, n};
   T v[4][4];
-  if (table)
-    sym_block<KIND, true>(tab, gslot, ct, o, k, v);
-  else
-    sym_block<KIND, false>(tab, gslot, ct, o, k, v);
+  // In a diagonal tile a block above the diagonal is the mirror of one below.
+  const bool active = !(i == j && o.rg < o.cg);
+  forward_tile<T, NQ_SYM, KIND>(sm, rows, rows, i, j, *ell, o, active, v);
+  if (!active) return;
   const int r0 = i * STILE + 4 * o.rg, c0 = j * STILE + 4 * o.cg;
   if (r0 == c0) {  // a block on the diagonal: its lower half, mirrored
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
       for (int kk = ii + 1; kk < 4; ++kk) v[ii][kk] = v[kk][ii];
-    store_block<T, false>(out, n, r0, c0, v);
+    store_block<T, false>(out, n, n, r0, c0, v);
     return;
   }
-  store_block<T, false>(out, n, r0, c0, v);
-  store_block<T, true>(out, n, c0, r0, v);
+  store_block<T, false>(out, n, n, r0, c0, v);
+  store_block<T, true>(out, n, n, c0, r0, v);
+}
+
+template <typename T, int KIND>
+void launch_rect_k(const T* x1, int n, const T* x2, int m, const T* decay, const T* sens,
+                   int G, const T* ell, T* out, cudaStream_t stream) {
+  const dim3 grid((m + STILE - 1) / STILE, (n + STILE - 1) / STILE);
+  gram_rect_kernel<T, KIND><<<grid, STHREADS, 0, stream>>>(x1, n, x2, m, decay, sens, G, ell,
+                                                           out);
 }
 
 template <typename T>
-int launch_rect(const T* m1, int n, const T* m2, int m, const T* ell, T* out, int kind,
-                cudaStream_t stream) {
-  if (n > 0 && m > 0) {
-    const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
-    gram_rect_kernel<T><<<grid, dim3(TILE, ROWS_PER_PASS), 0, stream>>>(m1, n, m2, m, ell, out,
-                                                                        kind);
+int launch_rect(const T* x1, int n, const T* x2, int m, const T* decay, const T* sens, int G,
+                const T* ell, T* out, int kind, cudaStream_t stream) {
+  if (n <= 0 || m <= 0) return (int)cudaGetLastError();
+  if (G <= 0 || (n + STILE - 1) / STILE > 65535) return (int)cudaErrorInvalidValue;
+  switch (kind) {
+    case XX: launch_rect_k<T, XX>(x1, n, x2, m, decay, sens, G, ell, out, stream); break;
+    case FF: launch_rect_k<T, FF>(x1, n, x2, m, decay, sens, G, ell, out, stream); break;
+    case XF: launch_rect_k<T, XF>(x1, n, x2, m, decay, sens, G, ell, out, stream); break;
+    case FX: launch_rect_k<T, FX>(x1, n, x2, m, decay, sens, G, ell, out, stream); break;
+    case MIXED: launch_rect_k<T, MIXED>(x1, n, x2, m, decay, sens, G, ell, out, stream); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -672,7 +707,7 @@ struct Partials {
 template <int KIND, typename T>
 __device__ __forceinline__ Partials<T> partials(const RowQ<T>& a, const RowQ<T>& b,
                                                 const Scale<T>& k, const Cross<T>& c) {
-  const Mid<T> m = mid<KIND>(a, b, k, c);
+  const Mid<T> m = mid<KIND, true>(a, b, k, c);
   Partials<T> p{};
   T Ub = T(0), Q1b = T(0), Q2b = T(0), Fb = T(0);
   Weights<T> w{};
@@ -770,7 +805,7 @@ __device__ __forceinline__ void bwd_block(const T (*tab)[2 * STILE], const int* 
     if (active && ra < n) {
       T gd[4];
       const T* grow = g + (size_t)ra * n + c0;
-      if (vector_block<T>(n, r0, c0)) {
+      if (vector_block<T>(n, n, r0, c0)) {
         ld4(grow, gd);
       } else {
 #pragma unroll
@@ -782,7 +817,8 @@ __device__ __forceinline__ void bwd_block(const T (*tab)[2 * STILE], const int* 
         const int cb = c0 + kk;
         if (cb >= n || cb > ra) continue;  // outside, or above the diagonal
         const double w = (double)gd[kk] + (cb != ra ? (double)gm[kk][ii] : 0.0);
-        const Cross<T> c = cross_terms<TABLE, true>(a, b[kk], 4 * o.rg + ii, 4 * o.cg + kk, ct);
+        const Cross<T> c =
+            cross_terms<TABLE, true, 3>(a, b[kk], 4 * o.rg + ii, 4 * o.cg + kk, ct);
         const Partials<T> p = partials<KIND>(a, b[kk], k, c);
         rd += w * (double)p.da;
         rs += w * (double)p.sa;
@@ -825,15 +861,16 @@ gram_sym_bwd_kernel(const T* __restrict__ meta, const int* __restrict__ gene, in
   const Scale<T> k = scale(l);
   const CrossTables<T> ct{cerf, cphi};
   const Owner o = owner();
+  const PackedRows<T> rows{meta, n};
   const int tiles = (int)lower_tiles(n);
   double acc_l = 0.0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     int i, j;
     tril_tile(tile, &i, &j);
     __syncthreads();  // the previous tile's tables and partials are read
-    fill_table<T, NQ, KIND>(tab, key, meta, gene, n, G, i, j, l);
+    fill_table<T, NQ, KIND>(tab, key, rows, rows, gene, G, i, j, l);
     __syncthreads();
-    const bool table = KIND != FF && cross_tables<T, true>(tab, gslot, dgam, ndist, ct);
+    const bool table = KIND != FF && cross_tables<T, true, 3>(tab, gslot, dgam, ndist, ct);
     double cd[4] = {0.0, 0.0, 0.0, 0.0}, cs[4] = {0.0, 0.0, 0.0, 0.0};
     if (table)
       bwd_block<KIND, true>(tab, gslot, ct, o, k, g, n, i, j, rowP, cd, cs, acc_l);
@@ -911,14 +948,16 @@ int launch_sym_bwd(const T* meta, const int* gene, int n, int G, const T* ell, c
 
 extern "C" {
 
-int simm_gram_rect_f32(const float* m1, int n, const float* m2, int m, const float* ell,
-                       float* out, int kind, cudaStream_t stream) {
-  return launch_rect<float>(m1, n, m2, m, ell, out, kind, stream);
+int simm_gram_rect_f32(const float* x1, int n, const float* x2, int m, const float* decay,
+                       const float* sens, int G, const float* ell, float* out, int kind,
+                       cudaStream_t stream) {
+  return launch_rect<float>(x1, n, x2, m, decay, sens, G, ell, out, kind, stream);
 }
 
-int simm_gram_rect_f64(const double* m1, int n, const double* m2, int m, const double* ell,
-                       double* out, int kind, cudaStream_t stream) {
-  return launch_rect<double>(m1, n, m2, m, ell, out, kind, stream);
+int simm_gram_rect_f64(const double* x1, int n, const double* x2, int m, const double* decay,
+                       const double* sens, int G, const double* ell, double* out, int kind,
+                       cudaStream_t stream) {
+  return launch_rect<double>(x1, n, x2, m, decay, sens, G, ell, out, kind, stream);
 }
 
 int simm_gram_sym_f32(const float* meta, int n, const float* ell, float* out, int kind,
@@ -941,40 +980,42 @@ int simm_gram_sym_bwd_f64(const double* meta, const int* gene, int n, int G, con
   return launch_sym_bwd<double>(meta, gene, n, G, ell, g, grad, kind, stream);
 }
 
-// Kernel `which` for chip_smoke.py: 0, 1 K1 (f32, f64); 2..7 K2 (f32 then
-// f64, kinds xx, ff, mixed); 8..13 K2's backward (the same order). Its name
-// into *name, its registers, local and static shared bytes into
-// attrs[0..2]; -1 past the last kernel.
+// Kernel `which` for chip_smoke.py: 0..9 K1 (f32 then f64, kinds xx, ff,
+// xf, fx, mixed); 10..15 K2 (f32 then f64, kinds xx, ff, mixed); 16..21
+// K2's backward (the same order). Its name into *name, its registers,
+// local and static shared bytes into attrs[0..2]; -1 past the last kernel.
+#define ATTRS(kernel, label) \
+  do {                       \
+    *name = label;           \
+    return func_attrs(kernel, attrs); \
+  } while (0)
 int kernel_attrs(int which, const char** name, int* attrs) {
   switch (which) {
-    case 0: *name = "gram_rect_kernel<float>"; return func_attrs(gram_rect_kernel<float>, attrs);
-    case 1: *name = "gram_rect_kernel<double>"; return func_attrs(gram_rect_kernel<double>, attrs);
-    case 2: *name = "gram_sym_kernel<float, xx>";
-      return func_attrs(gram_sym_kernel<float, XX>, attrs);
-    case 3: *name = "gram_sym_kernel<float, ff>";
-      return func_attrs(gram_sym_kernel<float, FF>, attrs);
-    case 4: *name = "gram_sym_kernel<float, mixed>";
-      return func_attrs(gram_sym_kernel<float, MIXED>, attrs);
-    case 5: *name = "gram_sym_kernel<double, xx>";
-      return func_attrs(gram_sym_kernel<double, XX>, attrs);
-    case 6: *name = "gram_sym_kernel<double, ff>";
-      return func_attrs(gram_sym_kernel<double, FF>, attrs);
-    case 7: *name = "gram_sym_kernel<double, mixed>";
-      return func_attrs(gram_sym_kernel<double, MIXED>, attrs);
-    case 8: *name = "gram_sym_bwd_kernel<float, xx>";
-      return func_attrs(gram_sym_bwd_kernel<float, XX>, attrs);
-    case 9: *name = "gram_sym_bwd_kernel<float, ff>";
-      return func_attrs(gram_sym_bwd_kernel<float, FF>, attrs);
-    case 10: *name = "gram_sym_bwd_kernel<float, mixed>";
-      return func_attrs(gram_sym_bwd_kernel<float, MIXED>, attrs);
-    case 11: *name = "gram_sym_bwd_kernel<double, xx>";
-      return func_attrs(gram_sym_bwd_kernel<double, XX>, attrs);
-    case 12: *name = "gram_sym_bwd_kernel<double, ff>";
-      return func_attrs(gram_sym_bwd_kernel<double, FF>, attrs);
-    case 13: *name = "gram_sym_bwd_kernel<double, mixed>";
-      return func_attrs(gram_sym_bwd_kernel<double, MIXED>, attrs);
+    case 0: ATTRS((gram_rect_kernel<float, XX>), "gram_rect_kernel<float, xx>");
+    case 1: ATTRS((gram_rect_kernel<float, FF>), "gram_rect_kernel<float, ff>");
+    case 2: ATTRS((gram_rect_kernel<float, XF>), "gram_rect_kernel<float, xf>");
+    case 3: ATTRS((gram_rect_kernel<float, FX>), "gram_rect_kernel<float, fx>");
+    case 4: ATTRS((gram_rect_kernel<float, MIXED>), "gram_rect_kernel<float, mixed>");
+    case 5: ATTRS((gram_rect_kernel<double, XX>), "gram_rect_kernel<double, xx>");
+    case 6: ATTRS((gram_rect_kernel<double, FF>), "gram_rect_kernel<double, ff>");
+    case 7: ATTRS((gram_rect_kernel<double, XF>), "gram_rect_kernel<double, xf>");
+    case 8: ATTRS((gram_rect_kernel<double, FX>), "gram_rect_kernel<double, fx>");
+    case 9: ATTRS((gram_rect_kernel<double, MIXED>), "gram_rect_kernel<double, mixed>");
+    case 10: ATTRS((gram_sym_kernel<float, XX>), "gram_sym_kernel<float, xx>");
+    case 11: ATTRS((gram_sym_kernel<float, FF>), "gram_sym_kernel<float, ff>");
+    case 12: ATTRS((gram_sym_kernel<float, MIXED>), "gram_sym_kernel<float, mixed>");
+    case 13: ATTRS((gram_sym_kernel<double, XX>), "gram_sym_kernel<double, xx>");
+    case 14: ATTRS((gram_sym_kernel<double, FF>), "gram_sym_kernel<double, ff>");
+    case 15: ATTRS((gram_sym_kernel<double, MIXED>), "gram_sym_kernel<double, mixed>");
+    case 16: ATTRS((gram_sym_bwd_kernel<float, XX>), "gram_sym_bwd_kernel<float, xx>");
+    case 17: ATTRS((gram_sym_bwd_kernel<float, FF>), "gram_sym_bwd_kernel<float, ff>");
+    case 18: ATTRS((gram_sym_bwd_kernel<float, MIXED>), "gram_sym_bwd_kernel<float, mixed>");
+    case 19: ATTRS((gram_sym_bwd_kernel<double, XX>), "gram_sym_bwd_kernel<double, xx>");
+    case 20: ATTRS((gram_sym_bwd_kernel<double, FF>), "gram_sym_bwd_kernel<double, ff>");
+    case 21: ATTRS((gram_sym_bwd_kernel<double, MIXED>), "gram_sym_bwd_kernel<double, mixed>");
     default: return -1;
   }
 }
+#undef ATTRS
 
 }  // extern "C"

@@ -15,14 +15,17 @@ Port of ``dis_project_tpu/ops/pallas_gram.py``:
   triangles of the (not necessarily symmetric) cotangent, in reverse mode
   written by hand.
 
-K2 and its backward evaluate the closed form in a hoisted arrangement: the
-terms that depend on one row only once per row, the rest per entry.
-:func:`gram_sym_hoisted` writes that arithmetic out in PyTorch, adjoints
-included; tests and ``chip_smoke.py`` hold it to the closed form.
+All three evaluate the closed form in a hoisted arrangement: the terms that
+depend on one row only once per row, the rest per entry.
+:func:`cross_covariance_hoisted` (K1) and :func:`gram_sym_hoisted` (K2 and
+its backward, adjoints included) write that arithmetic out in PyTorch, on
+one shared helper; tests and ``chip_smoke.py`` hold it to the closed form.
 
-All take (t, gene, flag) rows, pack per-row ``[t, decay, sens, flag]``
-metadata (gene indices clamped, as ``ops.gram`` does) and evaluate the
-closed form of ``kind`` ∈ {'xx', 'ff', 'xf', 'fx', 'mixed'}.
+All take (t, gene, flag) rows, gene indices clamped as ``ops.gram`` clamps
+them, and evaluate the closed form of ``kind`` ∈ {'xx', 'ff', 'xf', 'fx',
+'mixed'}. K2 and its backward take per-row ``[t, decay, sens, flag]``
+metadata packed here (:func:`pack_meta`); K1 takes the rows as they are and
+gathers decay and sensitivity in the kernel.
 
 Dispatch: on a CUDA tensor the wrapper launches the kernel (float32 or
 float64) or raises; on a CPU tensor it takes the plain version — never a
@@ -60,8 +63,9 @@ PLAIN_X_GRADS = {"gram_sym_x": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "simm_gram_rect_f32": [_P, _I, _P, _I, _P, _P, _I, _P],
-    "simm_gram_rect_f64": [_P, _I, _P, _I, _P, _P, _I, _P],
+    # (x1, n, x2, m, decay, sens, G, ell, out, kind, stream)
+    "simm_gram_rect_f32": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
+    "simm_gram_rect_f64": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
     "simm_gram_sym_f32": [_P, _I, _P, _P, _I, _P],
     "simm_gram_sym_f64": [_P, _I, _P, _P, _I, _P],
     # (meta, gene, n, G, ell, g, grad, kind, stream)
@@ -97,8 +101,8 @@ def _check_cuda_inputs(xs, decay, sens, lengthscale, kind):
     for x in xs:
         if x.dim() != 2 or x.shape[1] != 3:
             raise ValueError(f"rows must be (N, 3), got {tuple(x.shape)}")
-    if decay.dim() != 1 or sens.shape != decay.shape:
-        raise ValueError("decay and sens must be matching (G,) vectors")
+    if decay.dim() != 1 or sens.shape != decay.shape or decay.numel() == 0:
+        raise ValueError("decay and sens must be matching non-empty (G,) vectors")
     if lengthscale.numel() != 1:
         raise ValueError("lengthscale must be a scalar")
     if kind not in KIND_CODES:
@@ -107,18 +111,21 @@ def _check_cuda_inputs(xs, decay, sens, lengthscale, kind):
 
 
 def gram_rect_kernel(x1, x2, decay, sens, lengthscale, kind="mixed"):
-    """Launch K1 on CUDA tensors: the (N, M) covariance."""
+    """Launch K1 on CUDA tensors: the (N, M) covariance. The kernel reads
+    the rows and gathers decay and sensitivity itself: no launch besides
+    its own and the output's allocation for contiguous inputs."""
     dev, dtype = _check_cuda_inputs((x1, x2), decay, sens, lengthscale, kind)
-    m1 = pack_meta(x1, decay, sens)
-    m2 = pack_meta(x2, decay, sens)
+    x1, x2 = x1.contiguous(), x2.contiguous()
+    decay, sens = decay.contiguous(), sens.contiguous()
     ell = lengthscale.reshape(1).contiguous()
     n, m = x1.shape[0], x2.shape[0]
     out = torch.empty((n, m), dtype=dtype, device=dev)
     lib = cuda_build.load("simm_gram", SIGNATURES)
     fn = getattr(lib, f"simm_gram_rect_{_SUFFIX[dtype]}")
     with torch.cuda.device(dev):
-        code = fn(m1.data_ptr(), n, m2.data_ptr(), m, ell.data_ptr(),
-                  out.data_ptr(), KIND_CODES[kind], cuda_build.stream_handle(dev))
+        code = fn(x1.data_ptr(), n, x2.data_ptr(), m, decay.data_ptr(), sens.data_ptr(),
+                  decay.shape[0], ell.data_ptr(), out.data_ptr(), KIND_CODES[kind],
+                  cuda_build.stream_handle(dev))
     LAUNCHES["gram_rect"] += 1
     cuda_build.check(code, "simm_gram_rect")
     return out
@@ -201,10 +208,10 @@ _TWO_OVER_SQRT_PI = 1.1283791670955126
 
 
 def _hoisted_rows(x, decay, sens, lengthscale):
-    """The one-index quantities K2 and its backward stage per row (the
-    kernels' ``RowQ``): t, t/l, D, S, flag, gamma = D l / 2,
-    E = exp(gamma^2), e = exp(-D t), r = e (erf(t/l - gamma) + erf(gamma)),
-    and r's derivatives in D and l."""
+    """The one-index quantities the kernels stage per row (their ``RowQ``):
+    t, t/l, D, S, flag, gamma = D l / 2, E = exp(gamma^2), e = exp(-D t),
+    r = e (erf(t/l - gamma) + erf(gamma)), K1's C = c l S E, and r's
+    derivatives in D and l (K2's backward)."""
     t, gi, f = gram_ops.split_rows(x)
     l = lengthscale
     D, S = gram_ops._gather(decay, gi), gram_ops._gather(sens, gi)
@@ -214,16 +221,91 @@ def _hoisted_rows(x, decay, sens, lengthscale):
     e = torch.exp(-D * t)
     u = tl - gam
     r = e * (torch.erf(u) + torch.erf(gam))
+    C = (0.5 * lfk.SQRT_PI) * l * S * E
     phi_u = _TWO_OVER_SQRT_PI * torch.exp(-(u * u))
     phi_g = _TWO_OVER_SQRT_PI / E
     r_D = -t * r + e * (l * 0.5) * (phi_g - phi_u)
     r_l = e * (phi_u * (-tl / l - D * 0.5) + phi_g * (D * 0.5))
-    return dict(t=t, tl=tl, D=D, S=S, f=f, gam=gam, E=E, e=e, r=r, r_D=r_D, r_l=r_l)
+    return dict(t=t, tl=tl, D=D, S=S, f=f, gam=gam, E=E, e=e, r=r, C=C, r_D=r_D, r_l=r_l)
+
+
+def _hoisted_entries(rows, cols, lengthscale, kind):
+    """The per-entry terms of K1 and K2 (``csrc/simm_gram.cu``: ``mid``,
+    ``sym_value``, ``entry_value``) between the row tables ``rows`` (N) and
+    ``cols`` (M) of :func:`_hoisted_rows`, in the kernels' order: a dict of
+    the (N, M) terms the kind needs, its value under ``"K"``, and the
+    broadcast tables under ``"a"`` (rows) and ``"b"`` (columns).
+
+    Entry (a, b), with delta = t_a - t_b, x = delta / l, q = 1/(D_a + D_b):
+    A1 = exp(-D_a delta) (erf(x - gamma_a) + erf(t_b/l + gamma_a)),
+    A2 = exp(D_b delta) (erf(-x - gamma_b) + erf(t_a/l + gamma_b)),
+    U = c l q (E_a (A1 - r_a e_b) + E_b (A2 - r_b e_a)), c = sqrt(pi)/2:
+    k_xx = S_a S_b U, k_xf = C_a A1 (K1; 'mixed' takes S_a c l E_a A1),
+    k_fx = C_b A2. The kernels read erf(t_b/l + gamma_a) and erf(t_a/l +
+    gamma_b) from per-tile tables of (gamma, time) pairs where a tile side
+    holds few distinct gammas: the same values, so not repeated here; and
+    they take q from the hardware reciprocal and one Newton step (within an
+    ulp of the quotient here)."""
+    l = lengthscale
+    a = {k: v[:, None] for k, v in rows.items()}
+    b = {k: v[None, :] for k, v in cols.items()}
+    delta = a["t"] - b["t"]
+    m = dict(a=a, b=b, delta=delta, cl=(0.5 * lfk.SQRT_PI) * l)
+    if kind != "xx":
+        m["kff"] = torch.exp(-(delta * delta) / (2.0 * l))
+    if kind == "ff":
+        m["K"] = m["kff"]
+        return m
+    xq = delta / l
+    if kind == "xf":
+        m["K"] = a["C"] * (torch.exp(-a["D"] * delta)
+                           * (torch.erf(xq - a["gam"]) + torch.erf(b["tl"] + a["gam"])))
+        return m
+    if kind == "fx":
+        m["K"] = b["C"] * (torch.exp(b["D"] * delta)
+                           * (torch.erf(-xq - b["gam"]) + torch.erf(a["tl"] + b["gam"])))
+        return m
+    cl = m["cl"]
+    u1, u2 = xq - a["gam"], b["tl"] + a["gam"]
+    u3, u4 = -xq - b["gam"], a["tl"] + b["gam"]
+    X1, X2 = torch.exp(-a["D"] * delta), torch.exp(b["D"] * delta)
+    A1 = X1 * (torch.erf(u1) + torch.erf(u2))
+    A2 = X2 * (torch.erf(u3) + torch.erf(u4))
+    Pa, Pb = A1 - a["r"] * b["e"], A2 - b["r"] * a["e"]
+    q = 1.0 / (a["D"] + b["D"])
+    U = cl * q * (a["E"] * Pa + b["E"] * Pb)
+    m.update(xq=xq, u1=u1, u2=u2, u3=u3, u4=u4, X1=X1, X2=X2, A1=A1, A2=A2, Pa=Pa, Pb=Pb,
+             q=q, U=U)
+    if kind == "xx":
+        m["K"] = a["S"] * b["S"] * U
+        return m
+    fa, fb = a["f"], b["f"]
+    w = {"xx": fa * fb, "ff": (1.0 - fa) * (1.0 - fb), "xf": fa * (1.0 - fb),
+         "fx": (1.0 - fa) * fb}
+    Q1, Q2 = cl * a["E"] * A1, cl * b["E"] * A2
+    m.update(w=w, Q1=Q1, Q2=Q2)
+    m["K"] = (w["xx"] * (a["S"] * b["S"] * U) + w["ff"] * m["kff"] + w["xf"] * (a["S"] * Q1)
+              + w["fx"] * (b["S"] * Q2))
+    return m
+
+
+def cross_covariance_hoisted(x1, x2, decay, sens, lengthscale, kind="mixed"):
+    """Plain PyTorch version of K1's arithmetic (``csrc/simm_gram.cu``,
+    ``gram_rect_kernel``): per-row tables of both row sets, then the
+    per-entry terms of ``kind``, in the kernel's order. The (N, M)
+    covariance; no gradient. Only tests and ``chip_smoke.py`` call it."""
+    if kind not in KIND_CODES:
+        raise ValueError(f"unknown kind {kind!r}")
+    with torch.no_grad():
+        return _hoisted_entries(_hoisted_rows(x1, decay, sens, lengthscale),
+                                _hoisted_rows(x2, decay, sens, lengthscale),
+                                lengthscale, kind)["K"]
 
 
 def gram_sym_hoisted(x, decay, sens, lengthscale, kind="mixed", g=None):
     """Plain PyTorch version of the arithmetic of K2 and K2's backward in
-    ``csrc/simm_gram.cu``: the per-row tables, the per-entry terms and the
+    ``csrc/simm_gram.cu``: the per-row tables, the per-entry terms
+    (:func:`_hoisted_entries`, shared with K1's version) and the
     hand-derived reverse-mode adjoints, in the kernels' order. Only tests
     and ``chip_smoke.py`` call it; it holds the derivation to the closed
     form before any kernel runs.
@@ -233,63 +315,34 @@ def gram_sym_hoisted(x, decay, sens, lengthscale, kind="mixed", g=None):
     ``<g, K>`` with respect to ``(decay, sens, lengthscale)``: each entry's
     partials in the working dtype, their products with the cotangent and
     every sum after in float64, decay and sensitivity credited only from
-    the kind's expression rows, each to its clamped gene.
-
-    Entry (a, b), with delta = t_a - t_b, x = delta / l, q = 1/(D_a + D_b):
-    A1 = exp(-D_a delta) (erf(x - gamma_a) + erf(t_b/l + gamma_a)),
-    A2 = exp(D_b delta) (erf(-x - gamma_b) + erf(t_a/l + gamma_b)),
-    U = c l q (E_a (A1 - r_a e_b) + E_b (A2 - r_b e_a)), c = sqrt(pi)/2:
-    k_xx = S_a S_b U, k_xf = S_a c l E_a A1, k_fx = S_b c l E_b A2.
-    The kernels read erf(t_b/l + gamma_a) and erf(t_a/l + gamma_b) (and
-    their derivatives) from per-tile tables of (gamma, time) pairs where a
-    tile holds few distinct gammas: the same values, so not repeated here;
-    and they take q from the hardware reciprocal and one Newton step
-    (within an ulp of the quotient here)."""
+    the kind's expression rows, each to its clamped gene."""
     _check_sym_kind(kind)
     l = lengthscale
     rows = _hoisted_rows(x, decay, sens, l)
-    a = {k: v[:, None] for k, v in rows.items()}
-    b = {k: v[None, :] for k, v in rows.items()}
-    delta = a["t"] - b["t"]
-    kff = torch.exp(-(delta * delta) / (2.0 * l))
-    cl = (0.5 * lfk.SQRT_PI) * l
-    if kind != "ff":
-        xq = delta / l
-        u1, u2 = xq - a["gam"], b["tl"] + a["gam"]
-        u3, u4 = -xq - b["gam"], a["tl"] + b["gam"]
-        X1, X2 = torch.exp(-a["D"] * delta), torch.exp(b["D"] * delta)
-        A1 = X1 * (torch.erf(u1) + torch.erf(u2))
-        A2 = X2 * (torch.erf(u3) + torch.erf(u4))
-        Pa, Pb = A1 - a["r"] * b["e"], A2 - b["r"] * a["e"]
-        q = 1.0 / (a["D"] + b["D"])
-        U = cl * q * (a["E"] * Pa + b["E"] * Pb)
-        Q1, Q2 = cl * a["E"] * A1, cl * b["E"] * A2
-    fa, fb = a["f"], b["f"]
-    w = {"xx": fa * fb, "ff": (1.0 - fa) * (1.0 - fb), "xf": fa * (1.0 - fb),
-         "fx": (1.0 - fa) * fb}
-    if kind == "xx":
-        K = a["S"] * b["S"] * U
-    elif kind == "ff":
-        K = kff
-    else:
-        K = (w["xx"] * (a["S"] * b["S"] * U) + w["ff"] * kff + w["xf"] * (a["S"] * Q1)
-             + w["fx"] * (b["S"] * Q2))
-    K = torch.tril(K) + torch.tril(K, -1).T
+    m = _hoisted_entries(rows, rows, l, kind)
+    K = torch.tril(m["K"]) + torch.tril(m["K"], -1).T
     if g is None:
         return K
+    a, b, delta, cl = m["a"], m["b"], m["delta"], m["cl"]
+    zero = torch.zeros_like(delta)
+    kff = m.get("kff", zero)
 
     # Reverse sweep from the seeds (adjoints of U, k_xf_u, k_fx_u, k_ff):
     # each entry's partials of K, in the working dtype.
-    zero = torch.zeros_like(delta)
-    Ub, Q1b, Q2b, Fb = {
-        "xx": (a["S"] * b["S"], zero, zero, zero),
-        "ff": (zero, zero, zero, torch.ones_like(delta)),
-        "mixed": (w["xx"] * a["S"] * b["S"], w["xf"] * a["S"], w["fx"] * b["S"], w["ff"]),
-    }[kind]
+    if kind == "xx":
+        Ub, Q1b, Q2b, Fb = a["S"] * b["S"], zero, zero, zero
+    elif kind == "ff":
+        Ub, Q1b, Q2b, Fb = zero, zero, zero, torch.ones_like(delta)
+    else:
+        w = m["w"]
+        Ub, Q1b, Q2b, Fb = w["xx"] * a["S"] * b["S"], w["xf"] * a["S"], w["fx"] * b["S"], w["ff"]
     il = 1.0 / l
     p_l = Fb * kff * ((delta * delta) / (2.0 * l) / l)
     p_Da = p_Db = p_Sa = p_Sb = zero
     if kind != "ff":
+        xq, u1, u2, u3, u4, X1, X2, A1, A2, Pa, Pb, q, U = (m[k] for k in (
+            "xq", "u1", "u2", "u3", "u4", "X1", "X2", "A1", "A2", "Pa", "Pb", "q", "U"))
+        Q1, Q2 = m.get("Q1", zero), m.get("Q2", zero)
         Vb = Ub * cl * q
         p_Da = p_Db = -Ub * U * q
         p_l = p_l + (Ub * U + Q1b * Q1 + Q2b * Q2) * il

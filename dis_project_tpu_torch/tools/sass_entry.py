@@ -1,4 +1,4 @@
-"""SASS instructions of one 'xx' covariance entry of K2 and of K2's backward.
+"""SASS instructions of one covariance entry of K1, K2 and K2's backward.
 
 Usage, on a machine with ``nvcc`` and ``cuobjdump`` (no card needed)::
 
@@ -6,12 +6,13 @@ Usage, on a machine with ``nvcc`` and ``cuobjdump`` (no card needed)::
 
 It compiles, with the package's own ``nvcc`` flags for ``sm_90a``, probe
 kernels that include this package's ``csrc/simm_gram.cu`` and evaluate
-ONE float32 'xx' entry of the hoisted form from kernel parameters
-(``sym_value<XX>``, ``partials<XX>`` on the per-row ``RowQ``): ``fwd`` the
-Gram value, ``bwd`` the five partials of K2's
-backward (before the float64 products with the cotangent), each with the
-per-entry erf (``fwd``, ``bwd``) and from the (gamma, time) tables
-(``fwd_table``, ``bwd_table``). A frame probe per pair stores parameters
+ONE float32 entry of the hoisted form from kernel parameters
+(``sym_value<XX>``, ``entry_value<XF>``, ``partials<XX>`` on the per-row
+``RowQ``): ``fwd`` the 'xx' Gram value (K1 and K2), ``xf`` K1's 'xf'
+value, ``bwd`` the five partials of K2's backward (before the float64
+products with the cotangent), each with the per-entry erf (``fwd``, ``xf``,
+``bwd``) and from the (gamma, time) tables (``fwd_table``, ``xf_table``,
+``bwd_table``). A frame probe per pair stores parameters
 only. One entry costs the probe's instructions minus its frame's
 (``cuobjdump -sass``, NOPs left out). The inputs come from the constant
 bank, so no load is counted; in the kernels they come from registers or
@@ -34,10 +35,12 @@ from pathlib import Path
 
 from dis_project_tpu_torch.ops import cuda_build
 
-_ROWQ = ("t", "tl", "D", "S", "f", "gam", "E", "e", "r", "rD", "rl")
-_PARTS = {"fwd": "sym_value<XX>(a, b, k, cross_terms<false, false>(a, b, 0, 0, ct))",
+_ROWQ = ("t", "tl", "D", "S", "f", "gam", "E", "e", "r", "C", "rD", "rl")
+_PARTS = {"fwd": "sym_value<XX>(a, b, k, cross_terms<false, false, 3>(a, b, 0, 0, ct))",
           "fwd_table": "sym_value<XX>(a, b, k, c)",
-          "bwd": "partials<XX>(a, b, k, cross_terms<false, true>(a, b, 0, 0, ct))",
+          "xf": "entry_value<XF>(a, b, k, cross_terms<false, false, 1>(a, b, 0, 0, ct))",
+          "xf_table": "entry_value<XF>(a, b, k, c)",
+          "bwd": "partials<XX>(a, b, k, cross_terms<false, true, 3>(a, b, 0, 0, ct))",
           "bwd_table": "partials<XX>(a, b, k, c)"}
 WORKDIR = cuda_build.BUILD_DIR.parent / "sass"
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
@@ -58,7 +61,7 @@ def _probe_source(source: Path) -> str:
             "  const CrossTables<float> ct{nullptr, nullptr};\n")
     out = [f'#include "{source.resolve()}"\n']
     for name, call in _PARTS.items():
-        if name.startswith("fwd"):
+        if not name.startswith("bwd"):
             body, frame = f"out[0] = {call};", "out[0] = at;"
         else:
             body = (f"const Partials<float> p = {call};\n"
@@ -93,8 +96,8 @@ def _named(counts, name):
 
 
 def entry_counts(source: Path) -> dict:
-    """Instructions of one 'xx' entry of the forward and of the backward
-    in ``source``, with the multi-function-unit (MUFU) share."""
+    """Instructions of one entry of each probe in ``source``, with the
+    multi-function-unit (MUFU) share."""
     WORKDIR.mkdir(parents=True, exist_ok=True)
     probe = WORKDIR / f"probe_{hashlib.sha1(str(source.resolve()).encode()).hexdigest()[:12]}.cu"
     probe.write_text(_probe_source(source))
@@ -117,7 +120,7 @@ def main(argv=None):
     parser.add_argument("--library", action="append", type=Path, default=[],
                         help="a built libsimm_gram-*.so: every kernel's total")
     args = parser.parse_args(argv)
-    print(json.dumps({"sass_per_xx_entry": entry_counts(cuda_build.CSRC / "simm_gram.cu")}))
+    print(json.dumps({"sass_per_entry": entry_counts(cuda_build.CSRC / "simm_gram.cu")}))
     for library in args.library:
         totals = {k: sum(v.values()) for k, v in _sass_counts(library).items()}
         print(json.dumps({"sass_kernel_totals": {"library": str(library), "kernels": totals}}))
