@@ -4,9 +4,9 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and ``nvcc``; it imports nothing of JAX or of the
 JAX package. ``python3 chip_smoke.py --times ROOT`` only times K1, K2,
-K2's backward and ``blocked_cholesky`` at the dense10k shapes with the
-package under ``ROOT`` (:func:`times`): run it on a parent tree and on this
-one, in turns, to compare them. Phases (each raises on failure):
+K2's backward, ``blocked_cholesky`` and the dense10k Cholesky route's step
+at the dense10k shapes with the package under ``ROOT`` (:func:`times`): run
+it on a parent tree and on this one, in turns, to compare them. Phases (each raises on failure):
 
 1. Build the kernels from ``dis_project_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together); print the build seconds, the card's
@@ -62,8 +62,23 @@ one, in turns, to compare them. Phases (each raises on failure):
    before it and read just after; each path's kernels must have launched
    (K2's backward on the golden fit and both dense routes), and the plain
    VJP for the rows' gradient (``cuda_gram.PLAIN_X_GRADS``) never:
-   - the canonical route (``main.run``, p53, float64) and the golden
-     row-path fit (``trainer.fit``) held to ``tests/test_golden.py``;
+   - the canonical route (``main.fit_and_predict``, p53, float64, with
+     ``--track-parameters``, ``--metrics-path`` and ``--checkpoint-dir`` in
+     a temporary directory) and the golden row-path fit (``trainer.fit``)
+     held to ``tests/test_golden.py``; ``[canonical report]`` checks the
+     metrics, the checkpoint and the trace, and runs ``main.report`` and
+     checks its four plots where matplotlib is installed (else it says so);
+   - ``[resume]``: 150 canonical steps on the card (float64) straight
+     through, twice, against 75 steps, a checkpoint file and 75 resumed
+     steps, and against ``fit_checkpointed`` every 50 steps: history, raw
+     parameters, Adam moments and guard carry bitwise;
+   - ``[lbfgs]``: the p53 route with ``--optimizer lbfgs --num-iters 30``,
+     its final loss within rel 1e-8 of JAX's (``LBFGS30_FINAL_LOSS``);
+   - ``[p53-replicates]``: 150 steps on all three replicates (N = 105),
+     the final loss within 1e-8 of JAX's (``P53_REPLICATES_FINAL_LOSS``),
+     K1 and K2 in its posteriors;
+   - ``[alfi-parity]``: ``main.alfi_parity`` (100 iterations) and its three
+     gates, "Cross-framework parity OK";
    - the blocked engine at N = 1e4 on the real Σ: ``blocked_cholesky_t``
      (K4), ``blocked_cholesky(diag='pallas')`` (K5) and
      ``diag='pallas_inv'`` (K4), each reconstructing Σ no worse than twice
@@ -87,14 +102,30 @@ one, in turns, to compare them. Phases (each raises on failure):
    blocked factorisation's host enqueue time beside its device time, and
    the ``[auto]`` line: both step medians, whether the blocked step is
    faster by more than the step spread, and what ``'auto'`` resolves to.
-5. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+5. ``[dense cg]`` (:func:`dense_cg`): ``main.run_dense`` with ``--mll-engine
+   cg`` at 50 x 200 = 1e4, float32, 10 steps: K2 and K2's backward every
+   step, the plain VJP never; step ms (median of steps 2-10, interquartile
+   spread), CG iterations and converged columns per step with the host
+   microseconds per CG iteration, peak memory, stage times at the init
+   point, the recovery correlations; the first step with the same probes
+   held to the plain float32 versions and to float64 on the card (loss
+   within 3x the plain path's distance from float64 of the plain path, at
+   most 2x that distance and 1e-3 from float64, gradient cosine >= 0.999
+   to the plain path); the CG estimate at
+   init within rel 0.05 of the exact MLL. An ``[engines]`` line sets its
+   step beside the Cholesky route's.
+6. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
+import importlib.util
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -148,6 +179,31 @@ OPS_ROW_BWD = 33
 # The dense10k configuration (BASELINE config 4 of the JAX package):
 # 50 genes x 200 timepoints, N = 1e4; Adam steps driven on the card.
 DENSE_GENES, DENSE_TIMEPOINTS, DENSE_STEPS = 50, 200, 10
+
+# Goldens computed on the CPU by the JAX package in float64 (its optax
+# L-BFGS and Adam), pinned here and asserted against JAX by
+# tests/test_torch_port_training.py and tests/test_torch_port_report.py:
+# the p53 route (replicate 0, synthetic seed 0) with 30 L-BFGS iterations
+# (its objective evaluations, guard and line search together, its first ten
+# losses and its final loss), and the p53-replicates route (N = 105) after
+# 150 Adam steps.
+LBFGS30_CALLS = 72
+LBFGS30_HISTORY_HEAD = [
+    43.69118241179048, 18.687752727336484, 13.930060028948546, 11.398154122192821,
+    7.989402965817799, 5.965952276514859, 2.422482293815669, -6.6852008494046515,
+    -9.735185170405003, -10.393313275398313,
+]
+LBFGS30_FINAL_LOSS = -18.764290978317575
+# L-BFGS amplifies the differences of two float64 gradient computations
+# about tenfold every three iterations, and a thousandfold in its first
+# update: the port on the CPU ends 3.3e-9 from JAX's final loss, JAX
+# compiled at two XLA optimisation levels 1.8e-9 from itself, and the card
+# (CUDA's erf and exp in the table Gram) 7.5e-7, its tenth loss 1.9e-7. The
+# card's run is held to JAX's objective-evaluation count, its first two
+# losses (before and after the first line search) within rel 1e-8 and its
+# final loss within rel 1e-5.
+LBFGS30_FINAL_RTOL = 1e-5
+P53_REPLICATES_FINAL_LOSS = 0.43540257202783295
 
 
 def bound_ms(n_bytes, n_ops, ops_per_s=FP32_FLOP_PER_S):
@@ -208,12 +264,13 @@ def nvidia_smi_line():
 def times(root):
     """``--times ROOT``: K1 (1e4 x 200 'xf' against the latent grid and
     1e4 x 5000 'xx' against the expression grid), K2 and K2's backward, one
-    call (:func:`cuda_ms`) and back to back, and ``blocked_cholesky``
-    (float32, block 512, K5 diagonal steps) on the dense10k inputs at the
-    init point (N = 1e4, 'xx', the 'xla' engine's MLL cotangent, the real
-    Σ), with the ``dis_project_tpu_torch`` under ``ROOT``: this checkout, or
-    a parent unpacked with ``git archive``, so that two trees are timed by
-    the same code. Prints one JSON line with the card's name and power
+    call (:func:`cuda_ms`) and back to back, ``blocked_cholesky`` (float32,
+    block 512, K5 diagonal steps) on the dense10k inputs at the init point
+    (N = 1e4, 'xx', the 'xla' engine's MLL cotangent, the real Σ), and
+    ``main.run_dense``'s Cholesky-route step (median of steps 2-10 and its
+    interquartile spread), with the ``dis_project_tpu_torch`` under
+    ``ROOT``: this checkout, or a parent unpacked with ``git archive``, so
+    that two trees are timed by the same code. Prints one JSON line with the card's name and power
     limit."""
     sys.path.insert(0, root)
     import torch
@@ -231,7 +288,7 @@ def times(root):
     from dis_project_tpu_torch.utils.test_grids import expression_grid, latent_grid
 
     dev, f32 = default_device(), torch.float32
-    cuda_build.build(["simm_gram", "chol_block"])
+    cuda_build.build(["simm_gram", "chol_block", "syrk"])
     G, T = DENSE_GENES, DENSE_TIMEPOINTS
     X, y, _ = train_arrays(port_main.synthetic_dense_data(G, T, seed=0, dtype=f32, device=dev),
                            dev, f32)
@@ -257,7 +314,301 @@ def times(root):
            for name, fn in calls.items()}
     out["blocked_cholesky f32 N=1e4 B=512 pallas"] = {"ms": cuda_ms(
         lambda: cc.blocked_cholesky(sigma, block=512, diag="pallas"), reps=5)}
+    dense = port_main.run_dense(cfg.RunConfig(preset="dense10k", synth_genes=G,
+                                              synth_timepoints=T, num_iters=DENSE_STEPS,
+                                              x64=False, device="cuda"))
+    step_ms = [1e3 * t for t in dense.step_seconds[1:]]
+    q1, _, q3 = statistics.quantiles(step_ms, n=4)
+    out["dense10k step, Cholesky route"] = {"median_ms": statistics.median(step_ms),
+                                            "spread_ms": q3 - q1}
     print(json.dumps({"times": {"root": root, "card": nvidia_smi_line(), **out}}))
+
+
+def canonical_report(canon, config, smi):
+    """``[canonical report]``: the files of ``main.fit_and_predict`` (the
+    metrics JSONL, the checkpoint, the parameter trace) and, where
+    matplotlib is installed, ``main.report``'s four plots."""
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.training import checkpoint as ckpt
+
+    n = config.num_iters
+    with open(config.metrics_path) as f:
+        records = [json.loads(line) for line in f]
+    trace = canon.result.param_trace
+    print(f"[canonical report] metrics records {len(records)}, last {records[-1]}; checkpoint "
+          f"step {ckpt.latest_step(config.checkpoint_dir)}; parameter trace "
+          f"{tuple(trace.decay.shape)} ({smi})")
+    require(len(records) == n and records[-1]["loss"] == float(canon.result.history[-1]),
+            "canonical metrics JSONL")
+    require(ckpt.latest_step(config.checkpoint_dir) == n, "canonical checkpoint")
+    require(tuple(trace.decay.shape) == (n, 5), "canonical parameter trace")
+    if importlib.util.find_spec("matplotlib") is None:
+        print("[canonical report] plots are not drawn on this machine: matplotlib is absent; "
+              "tests/test_torch_port_report.py holds them on the CPU")
+        return
+    port_main.report(config, canon)
+    pngs = sorted(os.listdir(config.out_dir))
+    print(f"[canonical report] plots {pngs}")
+    require(pngs == ["comparison.png", "gxpr.png", "lf.png", "param_trace.png"],
+            f"canonical plots: {pngs}")
+
+
+def canonical_variants(drive, smi):
+    """The p53 route's other paths on the card, float64: bitwise resume
+    (``[resume]``), L-BFGS (``[lbfgs]``), all replicates
+    (``[p53-replicates]``) and the validation stack's gates
+    (``[alfi-parity]``)."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import P53Data, dataset_3d
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.training import checkpoint as ckpt
+    from dis_project_tpu_torch.training import trainer as tr
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    data = P53Data(replicate=0, source="synthetic", seed=0)
+    X, y, _ = dataset_3d(data, dev, f64)
+    model = simm.ExactSIMM(num_genes=5, jitter=1e-4)
+    grid = (data.timepoints, 1)
+
+    def fit(n, **kw):
+        return tr.fit(model, simm.init_params(5, dtype=f64, device=dev), X, y,
+                      tr.TrainConfig(num_iters=n), gridded=grid, **kw)
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def same_run(a, hist, b):
+        """History, raw parameters, Adam moments and guard carry, bitwise."""
+        (ga, oa), sa, ca = a.guard_state
+        (gb, ob), sb, cb = b.guard_state
+        return (torch.equal(a.history, hist) and same(a.raw_params, b.raw_params)
+                and a.opt_state.count == b.opt_state.count
+                and same(a.opt_state.mu, b.opt_state.mu) and same(a.opt_state.nu, b.opt_state.nu)
+                and same(ga, gb) and same(oa.mu, ob.mu) and same(oa.nu, ob.nu)
+                and (sa, ca) == (sb, cb))
+
+    def resume():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+        full, again = fit(150), fit(150)
+        half = fit(75)
+        ckpt.save(tmp, {"raw": half.raw_params, "opt_state": half.opt_state, "step": 75,
+                        "guard": half.guard_state}, step=75)
+        back = ckpt.restore(tmp, 75, template={"raw": half.raw_params,
+                                               "opt_state": half.opt_state, "step": 0,
+                                               "guard": half.guard_state})
+        on_card = all(t.device.type == "cuda" for t in back["raw"])
+        rest = fit(75, init_state=(back["raw"], back["opt_state"]), step_offset=back["step"],
+                   init_guard=back["guard"])
+        seg = tr.fit_checkpointed(model, simm.init_params(5, dtype=f64, device=dev), X, y,
+                                  tr.TrainConfig(), os.path.join(tmp, "seg"),
+                                  checkpoint_every=50, gridded=grid)
+        shutil.rmtree(tmp)
+        return full, again, half, rest, seg, on_card
+
+    full, again, half, rest, seg, on_card = drive("resume", resume, ())
+    checks = {
+        "two straight runs": same_run(full, again.history, again),
+        "75 + checkpoint + 75": same_run(full, torch.cat([half.history, rest.history]), rest),
+        "fit_checkpointed every 50": same_run(full, seg.history, seg),
+    }
+    print(f"[resume] 150 canonical steps f64 on the card, bitwise (history, raw parameters, "
+          f"Adam moments, guard carry): {checks}; restored onto the card: {on_card}; final loss "
+          f"{float(full.history[-1])!r} ({smi})")
+    require(all(checks.values()) and on_card, f"resume not bitwise: {checks}")
+
+    # The route's objective evaluations, counted on the model class for
+    # the length of this phase.
+    calls = [0]
+    mll_replicated = simm.ExactSIMM.mll_replicated
+
+    def counted(self, *args, **kwargs):
+        calls[0] += 1
+        return mll_replicated(self, *args, **kwargs)
+
+    simm.ExactSIMM.mll_replicated = counted
+    try:
+        lb = drive("lbfgs", lambda: port_main.fit_and_predict(cfg.RunConfig(
+            preset="p53", device="cuda", optimizer="lbfgs", num_iters=30)),
+            ("gram_rect", "gram_sym"))
+    finally:
+        simm.ExactSIMM.mll_replicated = mll_replicated
+    hist = lb.result.history.tolist()
+    head = [abs(a - b) / abs(b) for a, b in zip(hist, LBFGS30_HISTORY_HEAD)]
+    rel = abs(hist[-1] - LBFGS30_FINAL_LOSS) / abs(LBFGS30_FINAL_LOSS)
+    print(f"[lbfgs] 30 iterations, f64: objective evaluations {calls[0]} (JAX's "
+          f"{LBFGS30_CALLS}); first ten losses rel to JAX's {[f'{e:.1e}' for e in head]} (first "
+          f"two: limit 1e-8); final loss {hist[-1]!r}, JAX's optax L-BFGS "
+          f"{LBFGS30_FINAL_LOSS!r}, rel {rel:.3e} (limit {LBFGS30_FINAL_RTOL:g}) ({smi})")
+    require(calls[0] == LBFGS30_CALLS, f"lbfgs objective evaluations {calls[0]}")
+    require(max(head[:2]) <= 1e-8, f"lbfgs first losses off JAX's: rel {head[:2]}")
+    require(rel <= LBFGS30_FINAL_RTOL, f"lbfgs final loss off JAX's: rel {rel}")
+
+    rep = drive("p53-replicates", lambda: port_main.fit_and_predict(cfg.RunConfig(
+        preset="p53-replicates", replicate=None, device="cuda")), ("gram_rect", "gram_sym"))
+    final = float(rep.result.history[-1])
+    err = abs(final - P53_REPLICATES_FINAL_LOSS)
+    print(f"[p53-replicates] N={3 * 35}, 150 steps, f64: final loss {final!r}, JAX's "
+          f"{P53_REPLICATES_FINAL_LOSS!r}, abs {err:.3e} (limit 1e-8) ({smi})")
+    require(rep.data.num_replicates == 3 and err <= 1e-8, f"p53-replicates final loss: {err}")
+
+    alfi_cfg = cfg.RunConfig(preset="alfi-parity", device="cuda", num_iters=100)
+    parity = drive("alfi-parity", lambda: port_main.alfi_parity(alfi_cfg),
+                   ("gram_rect", "gram_sym", "gram_sym_bwd"))
+    print(f"[alfi-parity] |MLL delta| {parity.mll_delta:.3e} (gate 1e-6), fixed-params corr "
+          f"{parity.corr0:.6f} (gate 0.999), trained corr {parity.corr:.4f} (gate 0.95) ({smi})")
+    port_main.check_alfi_parity(parity)
+
+
+def dense_cg(drive, smi):
+    """``[dense cg]``: ``main.run_dense`` with ``--mll-engine cg`` at
+    dense10k's full width (N = 1e4, float32, DENSE_STEPS steps) through K2
+    and K2's backward every step; its step times, CG iterations and
+    converged columns, peak memory and stages; its first step held to the
+    plain float32 path and to float64 with the same probes; the CG estimate
+    at init held to the exact MLL."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import cuda_gram, iterative
+    from dis_project_tpu_torch.ops import mll as mll_ops
+    from dis_project_tpu_torch.training import generic
+
+    dev, f32, f64 = torch.device("cuda"), torch.float32, torch.float64
+    G, T, steps = DENSE_GENES, DENSE_TIMEPOINTS, DENSE_STEPS
+    config = cfg.RunConfig(preset="dense10k", synth_genes=G, synth_timepoints=T,
+                           num_iters=steps, x64=False, device="cuda", mll_engine="cg")
+    held = {}
+
+    def run():
+        torch.cuda.reset_peak_memory_stats(dev)
+        held["bytes"] = torch.cuda.memory_allocated(dev)
+        return port_main.run_dense(config)
+
+    dense = drive("dense cg", run, ("gram_sym", "gram_sym_bwd"))
+    launches = dict(cuda_gram.LAUNCHES)
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["bytes"]) / 2**30
+    # Every step launches K2 and its backward once; the exact final loss K2 once more.
+    require(launches["gram_sym"] == steps + 1 and launches["gram_sym_bwd"] == steps,
+            f"dense cg launches {launches}")
+    hist = dense.result.history.tolist()
+    step_ms = [1e3 * t for t in dense.step_seconds]
+    median = statistics.median(step_ms[1:])
+    q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
+    stats = dense.cg_stats
+    iters = [st["cg_iters"] for st in stats]
+    host_us = [1e6 * st["cg_host_s"] / st["cg_iters"] for st in stats]
+    b, s, d = dense.data.params_ground_truth()
+    corr_d = float(torch.corrcoef(torch.stack([dense.result.params.decay.double().cpu(),
+                                               torch.as_tensor(d)]))[0, 1])
+    corr_s = float(torch.corrcoef(torch.stack([dense.result.params.sensitivity.double().cpu(),
+                                               torch.as_tensor(s)]))[0, 1])
+    print(f"[dense cg] N={dense.X.shape[0]} losses {hist}; exact final loss "
+          f"{dense.final_loss!r}; recovery corr(decay) {corr_d:.4f} corr(sensitivity) "
+          f"{corr_s:.4f} ({smi})")
+    print(f"[dense cg] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) {median:.3f}, "
+          f"spread (interquartile) {q3 - q1:.3f}; peak memory {peak_gib:.3f} GiB (above the "
+          f"{held['bytes'] / 2**30:.3f} GiB held before the run) ({smi})")
+    print(f"[dense cg] CG iterations per step {iters} (cap {port_main.CG_MAX_ITERS}); columns "
+          f"converged {[st['converged'] for st in stats]} of {stats[0]['columns']}; host us per "
+          f"CG iteration (loop wall / iterations, one host sync each) "
+          f"{[round(u, 1) for u in host_us]} ({smi})")
+    require(all(math.isfinite(v) for v in hist) and math.isfinite(dense.final_loss),
+            "dense cg losses not finite")
+
+    # The first step again at the init point with the run's first probes
+    # (the generator seeded seed + 1): through the kernels, through the
+    # plain float32 versions, and in float64 on the card.
+    N = dense.X.shape[0]
+    probes = iterative.rademacher(torch.Generator().manual_seed(config.seed + 1),
+                                  port_main.CG_PROBES, N, f32, dev)
+    kmodel = dense.model
+    pmodel = simm.ExactSIMM(num_genes=G, jitter=kmodel.jitter, canonical_rows=True,
+                            kernels=False)
+    raw0 = simm.unconstrain(simm.init_params(G, dtype=f32, device=dev))
+
+    def first_step(model, X, y, z, raw):
+        st = {}
+        loss, grads = generic.value_and_grad(
+            lambda r: -model.mll_iterative(simm.constrain(r), X, y, z, port_main.CG_LANCZOS_ITERS,
+                                           port_main.CG_MAX_ITERS, st), raw)
+        return float(loss), torch.cat([g.reshape(-1).double() for g in grads]), st
+
+    lk, gk, stk = first_step(kmodel, dense.X, dense.y, probes, raw0)
+    lp, gp, stp = first_step(pmodel, dense.X, dense.y, probes, raw0)
+    l64, g64, st64 = first_step(kmodel, dense.X.double(), dense.y.double(), probes.double(),
+                                type(raw0)(*(r.double() for r in raw0)))
+    # The float32 CG/SLQ value sits ~7e-4 from float64 whichever Gram
+    # feeds it (the f32 Krylov loops; a Gram an ulp off moves CG's stopping
+    # iteration), so the kernels' loss is held as the expression posterior
+    # holds its kernels: at most 2x the plain float32 path's distance from
+    # the float64 value, and within 3x that distance of the plain path.
+    rel_plain = abs(lk - lp) / abs(l64)
+    cos = float(gk @ gp / (gk.norm() * gp.norm()))
+    rel64, rel64_plain = abs(lk - l64) / abs(l64), abs(lp - l64) / abs(l64)
+    cos64 = float(gk @ g64 / (gk.norm() * g64.norm()))
+    print(f"[dense cg] first step, same probes: loss kernels {lk!r} plain f32 {lp!r} f64 on "
+          f"the card {l64!r}; kernels vs plain {rel_plain:.3e} (limit 3x the plain's distance "
+          f"from f64: {3 * rel64_plain:.3e}); vs f64: kernels {rel64:.3e} (limits 1e-3 and 2x "
+          f"the plain's), plain f32 {rel64_plain:.3e}; gradient cosine vs plain {cos:.6f} (limit "
+          f"0.999), vs f64 {cos64:.6f}; CG iterations kernels {stk['cg_iters']} plain "
+          f"{stp['cg_iters']} f64 {st64['cg_iters']}; run's step 1 {hist[0]!r} ({smi})")
+    require(rel_plain <= 3 * rel64_plain, f"dense cg first-step loss vs plain: {rel_plain}")
+    require(cos >= 0.999, f"dense cg first-step gradient vs plain: cosine {cos}")
+    require(rel64 <= 1e-3 and rel64 <= 2 * rel64_plain,
+            f"dense cg first-step loss vs f64: {rel64} (plain {rel64_plain})")
+    require(abs(lk - hist[0]) <= 1e-5 * abs(hist[0]), "run_dense cg step 1 loss")
+
+    # The CG estimate at init against the exact MLL (tests/test_iterative.py:118).
+    p0 = simm.constrain(raw0)
+    with torch.no_grad():
+        exact = float(kmodel.mll(p0, dense.X, dense.y))
+    rel_exact = abs(-lk - exact) / abs(exact)
+    print(f"[dense cg] CG/SLQ estimate at init {-lk!r} vs exact MLL {exact!r}: rel "
+          f"{rel_exact:.3e} (limit 0.05) ({smi})")
+    require(rel_exact <= 0.05, f"dense cg estimate vs exact MLL: {rel_exact}")
+
+    # Where one step's device time goes, each stage timed alone with CUDA
+    # events at the init point (the host syncs of CG's stopping test included).
+    with torch.no_grad():
+        X, y = dense.X, dense.y
+        dd, ss, ll = p0.decay, p0.sensitivity, p0.lengthscale
+        K = cuda_gram.gram_sym_kernel(X, dd, ss, ll, "xx")
+        sigma = mll_ops.add_diagonal(K, kmodel.jitter + p0.obs_stddev**2)
+        yc = y - kmodel.mean_function(p0, X)
+        rhs = torch.cat([yc[:, None], probes.T], dim=1)
+        sols, _ = iterative.batched_cg(sigma, rhs, max_iters=port_main.CG_MAX_ITERS)
+        alpha, zsols = sols[:, 0].contiguous(), sols[:, 1:].contiguous()
+
+        def d_sigma():
+            est = zsols @ probes
+            out = est + est.T
+            del est
+            out.mul_(0.25 / probes.shape[0])
+            out.addr_(alpha, alpha, alpha=-0.5)
+            return out
+
+        dsig = d_sigma()
+        stages = {
+            "gram K2": lambda: cuda_gram.gram_sym_kernel(X, dd, ss, ll, "xx"),
+            "add_diagonal": lambda: mll_ops.add_diagonal(K, kmodel.jitter + p0.obs_stddev**2),
+            "SLQ (Lanczos + eigh)": lambda: iterative.slq_logdet(
+                sigma, probes, port_main.CG_LANCZOS_ITERS),
+            "CG": lambda: iterative.batched_cg(sigma, rhs, max_iters=port_main.CG_MAX_ITERS),
+            "N x N estimate and d_sigma": d_sigma,
+            "gram backward K2 bwd": lambda: cuda_gram.gram_sym_bwd_kernel(
+                X, dd, ss, ll, "xx", dsig),
+            "exact final MLL (K2 + cuSOLVER)": lambda: kmodel.mll(p0, X, y),
+        }
+        stage_ms = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
+    step_sum = sum(v for k, v in stage_ms.items() if not k.startswith("exact"))
+    print(f"[dense cg] stage ms {json.dumps(stage_ms)}; sum of the step's stages "
+          f"{step_sum:.3f} vs step median {median:.3f} ({smi})")
+    return dict(median=median, spread=q3 - q1, peak_gib=peak_gib, corr=(corr_d, corr_s))
 
 
 def main():
@@ -973,10 +1324,18 @@ def main():
                 f"{what}: the rows' gradient went through the plain VJP")
         return out
 
-    # Canonical route through the CLI's entry point, float64, and the golden
-    # row path (tests/test_golden.py), whose training Gram is K2.
+    # Canonical route through the CLI's entry point (its device work,
+    # main.fit_and_predict), float64, with --track-parameters, --metrics-path
+    # and --checkpoint-dir in a temporary directory, and the golden row path
+    # (tests/test_golden.py), whose training Gram is K2.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    canon_cfg = cfg.RunConfig(preset="p53", device="cuda", track_parameters=True,
+                              metrics_path=os.path.join(tmp, "metrics.jsonl"),
+                              checkpoint_dir=os.path.join(tmp, "ckpt"),
+                              out_dir=os.path.join(tmp, "plots"))
+
     def canonical_route():
-        canon = port_main.run(cfg.RunConfig(preset="p53", device="cuda"))
+        canon = port_main.fit_and_predict(canon_cfg)
         data = P53Data(replicate=0, source="synthetic", seed=0)
         X, y, var = train_arrays(data, dev, f64)
         golden_model = simm.ExactSIMM(num_genes=5, jitter=1e-4)
@@ -1010,6 +1369,9 @@ def main():
     require(all(abs(a - b) <= 2e-4 for a, b in zip(
         probe, [1.34483514, 1.31897536, 0.1286597])),
         "latent probe means off golden (atol 2e-4)")
+    canonical_report(canon, canon_cfg, smi)
+    canonical_variants(drive, smi)
+    shutil.rmtree(tmp)
 
     # The blocked engine at N = 1e4 on the real Sigma: each factor finite
     # and reconstructing Sigma no worse than twice cuSOLVER's factor.
@@ -1114,6 +1476,11 @@ def main():
         return dense, steady, q3 - q1, peak_gib
 
     dense, steady_xla, spread_xla, peak_xla = dense_route("xla")
+    _, s_true, d_true = dense.data.params_ground_truth()
+    xla_corr = tuple(float(torch.corrcoef(torch.stack([fitted.double().cpu(),
+                                                       torch.as_tensor(true)]))[0, 1])
+                     for fitted, true in ((dense.result.params.decay, d_true),
+                                          (dense.result.params.sensitivity, s_true)))
 
     # latent_predict at N = 1e4 on the 200-point training grid, through K1.
     def latent_route():
@@ -1312,6 +1679,12 @@ def main():
           f"{steady_xla - steady_blocked:.3f} ms, spread {spread:.3f} ms: blocked faster by more "
           f"than the spread: {beyond}; 'auto' resolves to "
           f"{mll_ops.resolve_chol_impl(G * T, f32, dev)!r} on the card")
+
+    cg = dense_cg(drive, smi)
+    print(f"[engines] dense10k step median: cg {cg['median']:.3f} ms (spread {cg['spread']:.3f}, "
+          f"{cg['peak_gib']:.3f} GiB, recovery corr {cg['corr'][0]:.4f}/{cg['corr'][1]:.4f}), "
+          f"xla {steady_xla:.3f} ms (spread {spread_xla:.3f}, {peak_xla:.3f} GiB, recovery corr "
+          f"{xla_corr[0]:.4f}/{xla_corr[1]:.4f}); cg / xla {cg['median'] / steady_xla:.3f} ({smi})")
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():

@@ -1,15 +1,20 @@
 """Run configuration and CLI flags of the port — the subset of
-``dis_project_tpu/config.py`` that the ported routes use."""
+``dis_project_tpu/config.py`` that the ported routes use, with the JAX
+package's names, defaults and choices."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
-PORTED_PRESETS = ("p53", "dense10k")
+PORTED_PRESETS = ("p53", "p53-replicates", "alfi-parity", "dense10k")
 # The JAX package's other presets; the CLI names them and refuses them.
-NOT_PORTED_PRESETS = ("p53-replicates", "alfi-parity", "sparse100k")
+NOT_PORTED_PRESETS = ("sparse100k",)
+# Dense-route engines: 'cholesky' (the row/gridded exact route) and 'cg'
+# (ops.iterative); the JAX package's 'dist' and 'ss' are not ported.
+PORTED_ENGINES = ("cholesky", "cg")
+NOT_PORTED_ENGINES = ("dist", "ss")
 
 # Exact-path jitter (reference src/main.py:41).
 EXACT_JITTER = 1e-4
@@ -18,45 +23,123 @@ EXACT_JITTER = 1e-4
 @dataclasses.dataclass
 class RunConfig:
     # p53 — canonical single-replicate exact pipeline;
+    # p53-replicates — all three replicates (or an ablation) through run;
+    # alfi-parity — the port against the independent torch validation stack;
     # dense10k — synthetic genes x timepoints exact-GP stress run.
     preset: str = "p53"
+    # data
+    replicate: Optional[int] = 0  # None = all three replicates
+    selected_genes: Optional[Sequence[str]] = None
+    data_dir: str = "data"
+    data_source: str = "auto"  # auto | csv | synthetic
     seed: int = 0
     synth_genes: int = 50
     synth_timepoints: int = 200
+    # dense10k MLL engine: cholesky (exact) | cg (batched CG + SLQ)
+    mll_engine: str = "cholesky"
+    # None = the exact-path default 1e-4 (exact_jitter)
+    jitter: Optional[float] = None
+    # tie B/S/D across genes (shared-vs-per-gene kinetics ablation)
+    shared_kinetics: bool = False
+    # training (reference canonical run: adam lr=0.01, 150 iters, f64)
     num_iters: int = 150
+    learning_rate: float = 0.01
+    optimizer: str = "adam"
+    fix_params: bool = True
+    num_steps_per_epoch: int = 1000
+    track_parameters: bool = False
     # f64 (parity tier) unless --no-x64 (f32, the performance tier)
     x64: bool = True
     # None = the card; "cpu" runs the port on the CPU
     device: Optional[str] = None
+    # reporting
+    out_dir: str = "plots"
+    save_name: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    resume: bool = False
+    metrics_path: Optional[str] = None  # JSONL per-step metrics
+
+    @property
+    def exact_jitter(self) -> float:
+        """--jitter, or the exact-path default 1e-4 when not given."""
+        return self.jitter if self.jitter is not None else EXACT_JITTER
 
 
 def add_cli_args(parser: argparse.ArgumentParser) -> None:
     d = RunConfig()
     parser.add_argument("--preset", default=d.preset,
                         choices=PORTED_PRESETS + NOT_PORTED_PRESETS,
-                        help="p53 (canonical) or dense10k (N = genes x "
-                        "timepoints exact stress run); the other presets are "
-                        "not yet ported")
+                        help="p53 (canonical), p53-replicates (all replicates), "
+                        "alfi-parity (the torch validation stack's gates) or "
+                        "dense10k (N = genes x timepoints exact stress run); "
+                        "sparse100k is not yet ported")
+    parser.add_argument("--replicate", type=str, default="0",
+                        help="replicate index 0-2, or 'all'")
+    parser.add_argument("--genes", type=str, default=None,
+                        help="comma-separated gene subset, e.g. p21,DDB2")
+    parser.add_argument("--data-dir", default=d.data_dir)
+    parser.add_argument("--data-source", default=d.data_source,
+                        choices=["auto", "csv", "synthetic"])
     parser.add_argument("--seed", type=int, default=d.seed)
     parser.add_argument("--synth-genes", type=int, default=d.synth_genes,
                         help=f"dense10k gene count (default {d.synth_genes})")
     parser.add_argument("--synth-timepoints", type=int, default=d.synth_timepoints,
                         help=f"dense10k timepoint count (default {d.synth_timepoints})")
+    parser.add_argument("--mll-engine", default=d.mll_engine,
+                        choices=PORTED_ENGINES + NOT_PORTED_ENGINES,
+                        help="dense10k MLL engine: 'cholesky' (exact) or 'cg' "
+                        "(batched CG + stochastic Lanczos quadrature); 'dist' and "
+                        "'ss' are not yet ported")
+    parser.add_argument("--jitter", type=float, default=d.jitter,
+                        help="diagonal jitter (default 1e-4)")
     parser.add_argument("--num-iters", type=int, default=d.num_iters,
-                        help=f"Adam steps (default {d.num_iters})")
+                        help=f"optimisation steps (default {d.num_iters})")
+    parser.add_argument("--learning-rate", type=float, default=d.learning_rate)
+    parser.add_argument("--optimizer", default=d.optimizer, choices=["adam", "lbfgs"])
+    parser.add_argument("--no-fix-params", action="store_true",
+                        help="disable the p21 identifiability clamp")
+    parser.add_argument("--shared-kinetics", action="store_true",
+                        help="tie basal/sensitivity/decay across genes "
+                        "(ablation; implies --no-fix-params)")
+    parser.add_argument("--steps-per-epoch", type=int, default=d.num_steps_per_epoch)
+    parser.add_argument("--track-parameters", action="store_true")
     parser.add_argument("--no-x64", action="store_true",
                         help="run in float32 (default float64)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs on the CPU)")
+    parser.add_argument("--out-dir", default=d.out_dir)
+    parser.add_argument("--save-name", default=None)
+    parser.add_argument("--checkpoint-dir", default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint in "
+                        "--checkpoint-dir (params + optimizer state)")
+    parser.add_argument("--metrics-path", default=None)
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
     return RunConfig(
         preset=args.preset,
+        replicate=None if args.replicate == "all" else int(args.replicate),
+        selected_genes=args.genes.split(",") if args.genes else None,
+        data_dir=args.data_dir,
+        data_source=args.data_source,
         seed=args.seed,
         synth_genes=args.synth_genes,
         synth_timepoints=args.synth_timepoints,
+        mll_engine=args.mll_engine,
+        jitter=args.jitter,
+        shared_kinetics=args.shared_kinetics,
         num_iters=args.num_iters,
+        learning_rate=args.learning_rate,
+        optimizer=args.optimizer,
+        fix_params=not args.no_fix_params,
+        num_steps_per_epoch=args.steps_per_epoch,
+        track_parameters=args.track_parameters,
         x64=not args.no_x64,
         device=args.device,
+        out_dir=args.out_dir,
+        save_name=args.save_name,
+        checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume,
+        metrics_path=args.metrics_path,
     )

@@ -1,8 +1,9 @@
-"""Carry parameters and data, as numpy, into the port.
+"""Carry parameters, data and training state, as numpy, into the port.
 
 The JAX package's arrays leave it as numpy (``np.asarray``); these helpers
 turn them into the port's tensors on a device, so one set of inputs can be
-run through both packages.
+run through both packages, and a JAX run (its raw parameters, optax's Adam
+state, its guard carry) can be continued by the port.
 """
 
 from __future__ import annotations
@@ -33,3 +34,24 @@ def arrays_from_numpy(X, y, var, device=None, dtype=PARITY_DTYPE):
         return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
 
     return t(X), t(y).reshape(-1), t(var).reshape(-1)
+
+
+def adam_state_from_numpy(count, mu, nu, device=None, dtype=PARITY_DTYPE):
+    """The port's ``generic.AdamState`` from optax's Adam state
+    (``ScaleByAdamState``: ``count``, ``mu``, ``nu``): ``mu`` and ``nu``
+    are mappings with the five :class:`SIMMParams` field names (e.g.
+    ``state.mu._asdict()``), values array-likes."""
+    from dis_project_tpu_torch.training.generic import AdamState
+
+    return AdamState(int(np.asarray(count)), params_from_numpy(mu, device, dtype),
+                     params_from_numpy(nu, device, dtype))
+
+
+def guard_from_numpy(good_raw, good_adam, streak, count, device=None, dtype=PARITY_DTYPE):
+    """The port's ``(good, streak, count)`` guard carry from the JAX
+    package's: ``good_raw`` a mapping of raw parameters by field name,
+    ``good_adam`` a ``(count, mu, nu)`` triple as for
+    :func:`adam_state_from_numpy`."""
+    good = (params_from_numpy(good_raw, device, dtype),
+            adam_state_from_numpy(*good_adam, device=device, dtype=dtype))
+    return good, int(np.asarray(streak)), int(np.asarray(count))

@@ -1,21 +1,34 @@
 """End-to-end pipelines of the port (``python -m dis_project_tpu_torch.main``).
 
-Two routes of ``dis_project_tpu/main.py``, on the card unless ``--device``
+Routes of ``dis_project_tpu/main.py``, on the card unless ``--device``
 says otherwise:
 
 - ``--preset p53`` (:func:`run`): Barenco data (synthetic seed 0 unless the
-  CSVs are present), ExactSIMM(jitter=1e-4), negative conjugate MLL + Adam
-  (0.01) with the p21 clamp through the Kronecker/table fast path,
-  hyperparameter table + ``hyperparams.csv``, the latent-force posterior on
-  a 100-point grid and the per-gene expression posterior. Plots are not
-  ported yet.
+  CSVs are present), ExactSIMM(jitter=1e-4), negative conjugate MLL with
+  Adam (or ``--optimizer lbfgs``) and the p21 clamp by name, through the
+  Kronecker/table fast path; optional resume from ``--checkpoint-dir``,
+  the metrics JSONL and a checkpoint; the latent-force posterior on a
+  100-point grid and the per-gene expression posterior
+  (:func:`fit_and_predict`, the device's work); then the hyperparameter
+  table, ``hyperparams.csv`` and the plots ``lf.png``, ``gxpr.png``,
+  ``comparison.png`` and, with ``--track-parameters``,
+  ``param_trace.png`` (:func:`report`, the host's; plots need
+  matplotlib).
+- ``--preset p53-replicates``: :func:`run` on all three replicates (N =
+  105), with the gene-subset, clamp and kinetics-sharing flags.
+- ``--preset alfi-parity`` (:func:`run_alfi_parity`): the port's
+  ExactSIMM against the independent torch validation stack
+  (``validation.torch_lfm``), three gates.
 - ``--preset dense10k`` (:func:`run_dense`): a synthetic draw at
-  N = genes x timepoints (50 x 200 = 1e4 by default), full-batch exact MLL
-  and Adam, with ground-truth recovery metrics. The Gram route is the JAX
-  package's, with the card in the TPU's place (:func:`dense_gram`): on the
-  card in float32 the row Gram — the kernel K2 and its backward, the custom
-  MLL backward with the SYRK kernel K3 — and elsewhere the table Gram of
-  ``ExactSIMM.mll_gridded``.
+  N = genes x timepoints (50 x 200 = 1e4 by default), full-batch training
+  with ground-truth recovery metrics. ``--mll-engine cholesky`` (default):
+  the exact MLL through the Gram the JAX package takes (:func:`dense_gram`):
+  on the card in float32 the row Gram — the kernel K2 and its backward,
+  the custom MLL backward with the SYRK kernel K3 — and elsewhere the table
+  Gram of ``ExactSIMM.mll_gridded``; Adam. ``--mll-engine cg``: the
+  matmul-only engine (``ExactSIMM.mll_iterative``: K2 and K2's backward on
+  the card in float32, batched CG and stochastic Lanczos quadrature),
+  gradient clipping and Adam (:func:`fit_cg`).
 
 Every other preset, engine, model family and flag of the JAX CLI fails with
 "not yet ported".
@@ -25,13 +38,18 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
 from dis_project_tpu_torch import config as cfg
+
+# The CG route's settings (dis_project_tpu/main.py:1244-1287): probes per
+# step, Lanczos steps, the CG iteration cap and the gradient clip.
+CG_PROBES, CG_LANCZOS_ITERS, CG_MAX_ITERS, CG_CLIP = 16, 24, 128, 10.0
 
 
 @dataclasses.dataclass
@@ -39,6 +57,9 @@ class CanonicalRun:
     result: Any  # training.trainer.TrainResult
     latent: Any  # models.base.Gaussian over the 100-point latent grid
     expression: Any  # models.base.Gaussian over the expression grid
+    data: Any  # data.dataset.P53Data
+    t_grid: torch.Tensor
+    x_grid: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -50,49 +71,264 @@ class DenseRun:
     y: torch.Tensor
     var: torch.Tensor
     step_seconds: List[float]
+    # CG route: per step, batched_cg's stats; and the exact final loss
+    cg_stats: Optional[List[dict]] = None
+    final_loss: Optional[float] = None
 
 
 def _final_loss(hist) -> float:
     return float(hist[-1]) if len(hist) else float("nan")
 
 
-def run(config: cfg.RunConfig) -> CanonicalRun:
+def _restore_for_resume(config, optimizer, params0, raw0):
+    """``(init_state, start_step)`` from the latest checkpoint in
+    ``--checkpoint-dir``: the full state (raw parameters, optimizer state,
+    step), or from a legacy ``{params, step}`` checkpoint the parameters
+    with a fresh optimizer (a warm start)."""
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.training import checkpoint as ckpt
+
+    latest = ckpt.latest_step(config.checkpoint_dir)
+    if latest is None:
+        return None, 0
+    try:
+        restored = ckpt.restore(config.checkpoint_dir, latest, template={
+            "raw": raw0, "opt_state": optimizer.init(raw0), "step": 0})
+        print(f"Resumed from checkpoint step {int(restored['step'])} "
+              f"({config.checkpoint_dir})")
+        return (restored["raw"], restored["opt_state"]), int(restored["step"])
+    except ValueError:
+        restored = ckpt.restore(config.checkpoint_dir, latest,
+                                template={"params": params0, "step": 0})
+        print(f"Resumed PARAMETERS from legacy checkpoint step {int(restored['step'])} "
+              f"({config.checkpoint_dir}); optimizer state not in checkpoint — warm start")
+        return ((simm.unconstrain(restored["params"]), optimizer.init(raw0)),
+                int(restored["step"]))
+
+
+def write_metrics(path: str, result) -> None:
+    """Per-step ``{step, loss, grad_norm}`` records, one JSON line each."""
+    with open(path, "w") as f:
+        for i, (loss, gn) in enumerate(zip(result.history.tolist(),
+                                           result.grad_norms.tolist())):
+            f.write(json.dumps({"step": i, "loss": loss, "grad_norm": gn}) + "\n")
+
+
+def fit_and_predict(config: cfg.RunConfig) -> CanonicalRun:
+    """The canonical route's device work: data, resume, the fit, the
+    metrics JSONL and the checkpoint, and both posteriors."""
     from dis_project_tpu_torch.data.dataset import P53Data, dataset_3d
     from dis_project_tpu_torch.models import simm
     from dis_project_tpu_torch.ops.precision import default_device, dtype_for
-    from dis_project_tpu_torch.reporting import tables
+    from dis_project_tpu_torch.training import checkpoint as ckpt
     from dis_project_tpu_torch.training import trainer as tr
     from dis_project_tpu_torch.utils.test_grids import expression_grid, latent_grid
 
     dev = default_device(config.device)
     dtype = dtype_for(config.x64)
-    data = P53Data(replicate=0, source="auto", seed=config.seed)
+    data = P53Data(replicate=config.replicate, data_dir=config.data_dir,
+                   selected_genes=config.selected_genes, source=config.data_source,
+                   seed=config.seed)
     X, y, var = dataset_3d(data, dev, dtype)
-    model = simm.ExactSIMM(num_genes=data.num_genes, jitter=cfg.EXACT_JITTER)
-    params0 = simm.init_params(data.num_genes, dtype=dtype, device=dev)
-    train_cfg = tr.TrainConfig(num_iters=config.num_iters,
-                               clamp_gene=data.gene_names.index("p21"))
+    model = simm.ExactSIMM(num_genes=data.num_genes, jitter=config.exact_jitter,
+                           shared_kinetics=config.shared_kinetics)
+    params0 = simm.init_params(data.num_genes, dtype=dtype, device=dev,
+                               shared_kinetics=config.shared_kinetics)
+    # The clamp targets p21 BY NAME: in a gene subset its index moves, or
+    # it is absent; with tied kinetics the per-gene clamp is meaningless.
+    has_p21 = "p21" in data.gene_names
+    train_cfg = tr.TrainConfig(
+        num_iters=config.num_iters,
+        learning_rate=config.learning_rate,
+        fix_params=config.fix_params and not config.shared_kinetics and has_p21,
+        clamp_gene=data.gene_names.index("p21") if has_p21 else 0,
+        num_steps_per_epoch=config.num_steps_per_epoch,
+        track_parameters=config.track_parameters,
+        optimizer=config.optimizer,
+    )
+    optimizer = tr.make_optimizer(train_cfg)
+    raw0 = simm.unconstrain(params0)
+    init_state, start_step = None, 0
+    if config.resume and config.checkpoint_dir:
+        init_state, start_step = _restore_for_resume(config, optimizer, params0, raw0)
 
     print(f"Training model on {dev} ({dtype})...")
     t0 = time.perf_counter()
     # dataset_3d rows are canonical gene-major grid blocks -> the
     # Kronecker/table fast path applies exactly.
     result = tr.fit(model, params0, X, y, train_cfg,
-                    gridded=(data.timepoints, data.num_replicates))
+                    gridded=(data.timepoints, data.num_replicates), optimizer=optimizer,
+                    init_state=init_state, step_offset=start_step)
     final = _final_loss(result.history)
     print(f"Trained {config.num_iters} iters in {time.perf_counter() - t0:.2f}s "
           f"(final loss {final:.6f})")
-
-    tables.print_hyperparams(result.params, data, csv_path="hyperparams.csv")
+    if config.metrics_path:
+        write_metrics(config.metrics_path, result)
+    if config.checkpoint_dir:
+        step = start_step + config.num_iters
+        ckpt.save(config.checkpoint_dir, {"raw": result.raw_params,
+                                          "opt_state": result.opt_state, "step": step},
+                  step=step)
 
     print("Making predictions...")
     t_grid = latent_grid(100, dtype=dtype, device=dev)
     latent = model.latent_predict(result.params, t_grid, X, y, var)
     x_grid = expression_grid(data.num_genes, t=100, dtype=dtype, device=dev)
     expression = model.multi_gene_predict(result.params, x_grid, X, y, var)
-    print(f"Latent force posterior on {t_grid.shape[0]} points, expression "
-          f"posterior on {x_grid.shape[0]} points (plots are not yet ported)")
-    return CanonicalRun(result, latent, expression)
+    return CanonicalRun(result, latent, expression, data, t_grid, x_grid)
+
+
+def report(config: cfg.RunConfig, out: CanonicalRun) -> None:
+    """The canonical route's host work: the hyperparameter table and
+    ``hyperparams.csv``, and the plots under ``--out-dir``."""
+    from dis_project_tpu_torch.reporting import plotter, tables
+
+    data, params = out.data, out.result.params
+    tables.print_hyperparams(params, data, csv_path="hyperparams.csv")
+    kw = dict(save_name=config.save_name, out_dir=config.out_dir)
+    plotter.plot_lf(out.t_grid, out.latent, y_scatter=data.f_observed,
+                    scatter_times=data.timepoints, **kw)
+    plotter.plot_gene_predictions(out.x_grid, out.expression, data, **kw)
+    plotter.plot_comparison(params, data, **kw)
+    trace = out.result.param_trace
+    if config.track_parameters and trace is not None:
+        plotter.plot_param_trace({"basal": trace.basal, "sensitivity": trace.sensitivity,
+                                  "decay": trace.decay}, data.gene_names, **kw)
+    print(f"Plots saved under {config.out_dir}/")
+
+
+def run(config: cfg.RunConfig) -> CanonicalRun:
+    """The canonical pipeline: :func:`fit_and_predict`, then :func:`report`."""
+    out = fit_and_predict(config)
+    report(config, out)
+    return out
+
+
+@dataclasses.dataclass
+class AlfiParity:
+    mll_delta: float  # |port - torch stack| MLL at the shared init
+    corr0: float  # latent-posterior correlation at the shared init
+    corr: float  # trained latent-posterior correlation
+    data: Any
+    t_test: np.ndarray
+    f_torch: torch.Tensor
+    f_var_torch: torch.Tensor
+    m_means: torch.Tensor
+    m_vars: torch.Tensor
+    param_trace: list  # the torch stack's per-epoch trace
+    result: Any  # the port's training.trainer.TrainResult
+
+
+def alfi_parity(config: cfg.RunConfig) -> AlfiParity:
+    """Train the port and the independent torch validation stack on the
+    same data and measure their agreement (BASELINE config 3, the
+    reference's GPJax-vs-GPyTorch check). The port runs on its device; the
+    validation stack is float64 on the CPU, as written."""
+    from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.training import trainer as tr
+    from dis_project_tpu_torch.validation.torch_lfm import TorchSIMM
+
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    data = P53Data(replicate=config.replicate, data_dir=config.data_dir,
+                   source=config.data_source, seed=config.seed)
+    X, y, var = train_arrays(data, dev, dtype)
+    model = simm.ExactSIMM(num_genes=data.num_genes, jitter=config.exact_jitter)
+    params0 = simm.init_params(data.num_genes, dtype=dtype, device=dev)
+    y_host = torch.as_tensor(y.detach().cpu().numpy(), dtype=torch.float64)
+    tm = TorchSIMM(
+        num_genes=data.num_genes,
+        timepoints=torch.tensor(np.asarray(data.timepoints)),
+        variances=torch.as_tensor(var.detach().cpu().numpy(), dtype=torch.float64),
+        jitter=config.exact_jitter,
+        num_replicates=data.num_replicates,
+    )
+    tm.set_train_targets(y_host)
+    t_test = np.linspace(0.0, 13.0, 80)
+    rows = torch.as_tensor(np.stack([t_test, -np.ones(80), np.zeros(80)], axis=-1),
+                           dtype=dtype, device=dev)
+
+    # Gate 1: like-for-like MLL at the same fixed (init) parameters; the
+    # torch MLL without the in-kernel measurement variances so that the
+    # Sigma conventions match. Two f64 implementations of one formula.
+    with torch.no_grad():
+        mll_port = float(model.mll(params0, X, y))
+        mll_torch = float(tm.mll(y_host, include_meas_var=False))
+    mll_delta = abs(mll_port - mll_torch)
+    print(f"Fixed-params MLL  port={mll_port:.9f}  torch={mll_torch:.9f}  "
+          f"|delta|={mll_delta:.3e}  (gate: <= 1e-6)")
+
+    # Gate 2: the latent-force posterior at the same fixed parameters.
+    with torch.no_grad():
+        f_port0 = model.latent_predict(params0, rows, X, y, var).mean.cpu().double().numpy()
+    f_torch0, _ = tm.predict_f(torch.tensor(t_test))
+    corr0 = float(np.corrcoef(f_torch0.numpy(), f_port0)[0, 1])
+    max_diff0 = float(np.abs(f_torch0.numpy() - f_port0).max())
+    print(f"Fixed-params latent posterior  corr={corr0:.6f}  "
+          f"max|diff|={max_diff0:.3e}  (gate: corr >= 0.999)")
+
+    # Trained agreement: each stack trains its own reference convention
+    # (torch includes the measurement variances in its MLL): a recovery
+    # check, not an implementation-parity bound.
+    print("Training the port...")
+    res = tr.fit(model, params0, X, y, tr.TrainConfig(num_iters=config.num_iters,
+                                                      learning_rate=config.learning_rate))
+    print("Training torch validation stack...")
+    hist_t = tm.fit(y_host, epochs=config.num_iters, lr=config.learning_rate,
+                    track_parameters=True)
+    f_torch, f_var_torch = tm.predict_f(torch.tensor(t_test))
+    with torch.no_grad():
+        f_port = model.latent_predict(res.params, rows, X, y, var).mean.cpu().double().numpy()
+    corr = float(np.corrcoef(f_torch.numpy(), f_port)[0, 1])
+    print(f"\nFinal loss  port={_final_loss(res.history):.6f}  torch={hist_t[-1]:.6f}")
+    print(f"Trained latent-force posterior correlation: {corr:.4f}")
+    m_means, m_vars = tm.predict_m(torch.tensor(t_test))
+    return AlfiParity(mll_delta, corr0, corr, data, t_test, f_torch, f_var_torch, m_means,
+                      m_vars, tm.param_trace, res)
+
+
+def alfi_parity_report(config: cfg.RunConfig, parity: AlfiParity) -> None:
+    """The torch-side plots (the reference's ``plotter_alfi.py`` surface)."""
+    from dis_project_tpu_torch.validation import torch_report
+
+    p, out_dir = parity, config.out_dir
+    torch_report.plot_lf_torch(p.t_test, p.f_torch.numpy(), p.f_var_torch.numpy(), p.data,
+                               out_dir=out_dir)
+    torch_report.plot_gxpred_torch(p.t_test, p.m_means.numpy(), p.m_vars.numpy(), p.data,
+                                   out_dir=out_dir)
+    torch_report.plot_comparison_torch(p.param_trace, p.data, out_dir=out_dir)
+    torch_report.plot_param_trace_torch(p.param_trace, p.data, out_dir=out_dir)
+    print(f"Torch-side plots saved under {out_dir}/ "
+          "(lf_torch, gxpr_torch, comparison_torch, param_trace_torch)")
+
+
+def check_alfi_parity(parity: AlfiParity) -> None:
+    """The three gates; a failure exits with the JAX package's message."""
+    if parity.mll_delta > 1e-6:
+        raise SystemExit(
+            f"cross-framework parity FAILED (fixed-params |MLL delta| "
+            f"{parity.mll_delta:.3e} > 1e-6)"
+        )
+    if parity.corr0 < 0.999:
+        raise SystemExit(
+            f"cross-framework parity FAILED (fixed-params corr {parity.corr0:.6f} < 0.999)"
+        )
+    if parity.corr < 0.95:
+        raise SystemExit(
+            f"cross-framework parity FAILED (trained corr {parity.corr:.4f} < 0.95)"
+        )
+    print("Cross-framework parity OK")
+
+
+def run_alfi_parity(config: cfg.RunConfig) -> float:
+    """:func:`alfi_parity`, its plots, its gates; returns the trained
+    correlation."""
+    parity = alfi_parity(config)
+    alfi_parity_report(config, parity)
+    check_alfi_parity(parity)
+    return parity.corr
 
 
 def synthetic_dense_data(genes: int, timepoints: int, seed: int, dtype, device):
@@ -117,12 +353,43 @@ def dense_gram(device, dtype) -> str:
     return "row" if on_card_f32 else "gridded"
 
 
+def fit_cg(model, raw0, X, y, num_iters: int, learning_rate: float, probes_for_step):
+    """The CG route's training loop: ``chain(clip_by_global_norm(10),
+    Adam(learning_rate))`` on ``-model.mll_iterative`` with 24 Lanczos
+    steps and at most 128 CG iterations, the probes of step ``i`` from
+    ``probes_for_step(i)`` ((16, N) ±1). Returns ``(raw, opt_state, losses,
+    stats, step_seconds)``, ``stats`` being each step's ``batched_cg``
+    stats."""
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.training import generic
+
+    optimizer = generic.Chain(generic.ClipByGlobalNorm(CG_CLIP), generic.Adam(learning_rate))
+    raw, opt_state = raw0, optimizer.init(raw0)
+    losses, stats, step_seconds = [], [], []
+    for i in range(num_iters):
+        ts = time.perf_counter()
+        probes, st = probes_for_step(i), {}
+
+        def objective(r):
+            return -model.mll_iterative(simm.constrain(r), X, y, probes,
+                                        CG_LANCZOS_ITERS, CG_MAX_ITERS, st)
+
+        loss, grads = generic.value_and_grad(objective, raw)
+        updates, opt_state = optimizer.update(grads, opt_state, raw, loss)
+        raw = generic.apply_updates(raw, updates)
+        losses.append(float(loss))  # host fetch: the step has finished
+        stats.append(st)
+        step_seconds.append(time.perf_counter() - ts)
+    return raw, opt_state, losses, stats, step_seconds
+
+
 def run_dense(config: cfg.RunConfig) -> DenseRun:
     """Dense exact-GP stress run: synthetic first-order data at
-    N = genes x timepoints, full-batch exact MLL through the Gram that
-    :func:`dense_gram` picks, Adam, and ground-truth kinetics recovery."""
+    N = genes x timepoints, full-batch training through the engine of
+    ``--mll-engine``, and ground-truth kinetics recovery."""
     from dis_project_tpu_torch.data.dataset import train_arrays
     from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import iterative
     from dis_project_tpu_torch.ops.precision import default_device, dtype_for
     from dis_project_tpu_torch.training import generic
     from dis_project_tpu_torch.training import trainer as tr
@@ -135,39 +402,58 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     data = synthetic_dense_data(G, T, config.seed, dtype, dev)
     X, y, var = train_arrays(data, dev, dtype)
 
-    model = simm.ExactSIMM(num_genes=G, jitter=cfg.EXACT_JITTER, canonical_rows=True)
-    route = dense_gram(dev, dtype)
-    print(f"Training (full-batch exact MLL, {route} Gram, Cholesky engine, {dtype})...")
-    timepoints = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
-
-    def objective(r):
-        if route == "row":
-            return -model.mll(simm.constrain(r), X, y)
-        return -model.mll_gridded(simm.constrain(r), timepoints, y)
-
-    optimizer = generic.Adam(0.01)
+    model = simm.ExactSIMM(num_genes=G, jitter=config.exact_jitter, canonical_rows=True)
     raw = simm.unconstrain(simm.init_params(G, dtype=dtype, device=dev))
-    opt_state = optimizer.init(raw)
-    losses, norms, step_seconds = [], [], []
     t0 = time.perf_counter()
-    for _ in range(config.num_iters):
-        ts = time.perf_counter()
-        loss, grads = generic.value_and_grad(objective, raw)
-        updates, opt_state = optimizer.update(grads, opt_state)
-        raw = generic.apply_updates(raw, updates)
-        losses.append(float(loss))  # host fetch: the step has finished
-        norms.append(float(generic.global_norm(grads)))
-        step_seconds.append(time.perf_counter() - ts)
+    cg_stats = None
+    if config.mll_engine == "cg":
+        print(f"Training (full-batch exact MLL, CG/Lanczos engine, {dtype})...")
+        gen = torch.Generator().manual_seed(config.seed + 1)
+        raw, opt_state, losses, cg_stats, step_seconds = fit_cg(
+            model, raw, X, y, config.num_iters, config.learning_rate,
+            lambda _: iterative.rademacher(gen, CG_PROBES, X.shape[0], dtype, dev))
+        norms = [0.0] * len(losses)
+        params = simm.constrain(raw)
+        with torch.no_grad():  # the exact final loss, one Cholesky evaluation
+            final = float(-model.mll(params, X, y))
+        iters = [s["cg_iters"] for s in cg_stats]
+        us = [1e6 * s["cg_host_s"] / max(s["cg_iters"], 1) for s in cg_stats]
+        print(f"CG iterations per step {iters} (cap {CG_MAX_ITERS}); columns converged "
+              f"{[s['converged'] for s in cg_stats]} of {1 + CG_PROBES}; host us per "
+              f"iteration {[round(u, 1) for u in us]}")
+    else:
+        route = dense_gram(dev, dtype)
+        print(f"Training (full-batch exact MLL, {route} Gram, Cholesky engine, {dtype})...")
+        timepoints = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
+
+        def objective(r):
+            if route == "row":
+                return -model.mll(simm.constrain(r), X, y)
+            return -model.mll_gridded(simm.constrain(r), timepoints, y)
+
+        optimizer = generic.Adam(config.learning_rate)
+        opt_state = optimizer.init(raw)
+        losses, norms, step_seconds = [], [], []
+        for _ in range(config.num_iters):
+            ts = time.perf_counter()
+            loss, grads = generic.value_and_grad(objective, raw)
+            updates, opt_state = optimizer.update(grads, opt_state)
+            raw = generic.apply_updates(raw, updates)
+            losses.append(float(loss))  # host fetch: the step has finished
+            norms.append(float(generic.global_norm(grads)))
+            step_seconds.append(time.perf_counter() - ts)
+        params = simm.constrain(raw)
+        final = _final_loss(losses)
     wall = time.perf_counter() - t0
     res = tr.TrainResult(
-        params=simm.constrain(raw),
+        params=params,
         history=torch.tensor(losses, dtype=torch.float64),
         grad_norms=torch.tensor(norms, dtype=torch.float64),
         raw_params=raw,
         opt_state=opt_state,
     )
     print(f"Trained {config.num_iters} iters in {wall:.2f}s "
-          f"(final loss {_final_loss(res.history):.4f}, N={G * T})")
+          f"(final loss {final:.4f}, N={G * T})")
 
     b, s, d = data.params_ground_truth()
     trained_d = res.params.decay.detach().cpu().numpy()
@@ -176,7 +462,17 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     corr_s = float(np.corrcoef(trained_s, s)[0, 1])
     print(f"Ground-truth recovery: corr(decay)={corr_d:.3f} "
           f"corr(sensitivity)={corr_s:.3f}")
-    return DenseRun(res, model, data, X, y, var, step_seconds)
+    return DenseRun(res, model, data, X, y, var, step_seconds, cg_stats, final)
+
+
+PORTED_FLAGS = (
+    "--preset p53|p53-replicates|alfi-parity|dense10k, --mll-engine cholesky|cg, "
+    "--replicate, --genes, --data-dir, --data-source, --seed, --synth-genes, "
+    "--synth-timepoints, --jitter, --num-iters, --learning-rate, --optimizer, "
+    "--no-fix-params, --shared-kinetics, --steps-per-epoch, --track-parameters, "
+    "--no-x64, --device, --out-dir, --save-name, --checkpoint-dir, --resume, "
+    "--metrics-path"
+)
 
 
 def main(argv=None):
@@ -184,16 +480,24 @@ def main(argv=None):
     cfg.add_cli_args(parser)
     args, unknown = parser.parse_known_args(argv)
     if unknown:
-        raise SystemExit(
-            f"{' '.join(unknown)}: not yet ported to dis_project_tpu_torch "
-            "(ported flags: --preset p53|dense10k, --num-iters, --no-x64, "
-            "--synth-genes, --synth-timepoints, --seed, --device)"
-        )
+        raise SystemExit(f"{' '.join(unknown)}: not yet ported to dis_project_tpu_torch "
+                         f"(ported flags: {PORTED_FLAGS})")
     config = cfg.config_from_args(args)
     if config.preset in cfg.NOT_PORTED_PRESETS:
         raise SystemExit(f"--preset {config.preset} is not yet ported")
+    if config.mll_engine in cfg.NOT_PORTED_ENGINES:
+        raise SystemExit(f"--mll-engine {config.mll_engine} is not yet ported")
+    if config.mll_engine != "cholesky" and config.preset != "dense10k":
+        raise SystemExit(f"--mll-engine {config.mll_engine} is only supported by the "
+                         "dense10k route")
+    if config.resume and not config.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
+    if config.preset == "alfi-parity":
+        return run_alfi_parity(config)
     if config.preset == "dense10k":
         return run_dense(config)
+    if config.preset == "p53-replicates":
+        config.replicate = None
     return run(config)
 
 

@@ -178,6 +178,29 @@ class ExactSIMM:
         impl = self._resolve_chol(x.shape[0], x.dtype, x.device)
         return mll_ops.mvn_logpdf(y, mx, sigma, impl=impl, kernels=self.kernels)
 
+    def mll_iterative(
+        self,
+        params: SIMMParams,
+        x: torch.Tensor,
+        y: torch.Tensor,
+        probes: torch.Tensor,
+        lanczos_iters: int = 32,
+        cg_iters: int = 256,
+        stats=None,
+    ) -> torch.Tensor:
+        """Matmul-only MLL via batched CG and stochastic Lanczos quadrature
+        (``ops.iterative``), same Sigma convention as :meth:`mll`; the value
+        is a randomised estimate, the gradient unbiased. ``probes``: (P, N)
+        ±1 (``iterative.rademacher``). On a CUDA float32 input the Gram and
+        its gradient are K2 and K2's backward kernel."""
+        from dis_project_tpu_torch.ops import iterative
+
+        y = y.reshape(-1)
+        mx = self.mean_function(params, x)
+        K = self.gram(params, x, self._kind("xx"))
+        sigma = mll_ops.add_diagonal(K, self.jitter + params.obs_stddev**2)
+        return iterative.mvn_logpdf_cg(y - mx, sigma, probes, lanczos_iters, cg_iters, stats)
+
     def mll_gridded(
         self,
         params: SIMMParams,

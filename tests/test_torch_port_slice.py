@@ -105,8 +105,9 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(relpath):
 
 
 ENTRY_POINTS = (
-    "arrays_from_numpy", "cli", "dataset_3d", "expression_grid", "latent_grid",
-    "params_from_numpy", "run", "run_dense", "sample_prior", "train_arrays",
+    "arrays_from_numpy", "cli", "dataset_3d", "expression_grid", "fit_and_predict",
+    "latent_grid", "params_from_numpy", "run", "run_alfi_parity", "run_dense",
+    "run_dense_cg", "sample_prior", "train_arrays",
 )
 
 
@@ -124,8 +125,14 @@ def _entry_points():
         "arrays_from_numpy": lambda: convert.arrays_from_numpy(
             np.zeros((2, 3)), np.zeros(2), np.zeros(2)),
         "run": lambda: tmain.run(cfg.RunConfig(num_iters=1)),
+        "fit_and_predict": lambda: tmain.fit_and_predict(cfg.RunConfig(num_iters=1)),
+        "run_alfi_parity": lambda: tmain.run_alfi_parity(cfg.RunConfig(
+            preset="alfi-parity", num_iters=1)),
         "run_dense": lambda: tmain.run_dense(cfg.RunConfig(
             preset="dense10k", synth_genes=2, synth_timepoints=3, num_iters=1)),
+        "run_dense_cg": lambda: tmain.run_dense(cfg.RunConfig(
+            preset="dense10k", synth_genes=2, synth_timepoints=3, num_iters=1,
+            mll_engine="cg")),
         "cli": lambda: tmain.main(["--num-iters", "1"]),
     }
 
@@ -473,8 +480,9 @@ def test_cli_dense_route_on_cpu():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "simm2"], ["--mll-engine", "cg"], ["--optimizer", "lbfgs"],
-    ["--preset", "sparse100k"], ["--preset", "alfi-parity"],
+    ["--model", "simm2"], ["--preset", "dense10k", "--mll-engine", "dist"],
+    ["--posterior-samples", "5"], ["--preset", "sparse100k"],
+    ["--preset", "p53-replicates", "--ensemble"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
