@@ -114,7 +114,28 @@ it on a parent tree and on this one, in turns, to compare them. Phases (each rai
    to the plain path); the CG estimate at
    init within rel 0.05 of the exact MLL. An ``[engines]`` line sets its
    step beside the Cholesky route's.
-6. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+6. The state-space engine (``ops/statespace.py``; no hand-written kernel
+   runs on it, so its drives require no launch): ``[ss parity]``
+   (:func:`ss_parity`, float64: ``lfm_mll_ss`` against
+   ``ExactSIMM.mll_gridded`` on a p53-shaped draw at orders 8, 10, 12,
+   errors under 2e-2, 4e-3, 6e-4 and falling, and at the dense10k shape
+   within 5e-3 x max(1, |MLL|) with a raw-gradient cosine >= 0.999);
+   ``[dense ss]`` (:func:`dense_ss`: ``main.run_dense --mll-engine ss`` at
+   50 x 200, order 10, float32, DENSE_STEPS steps: losses, step ms (median
+   of steps 2-10, interquartile spread), host microseconds per filter step,
+   host share, peak memory, recovery; the first step against float64 on
+   the card, loss rel 1e-4 and gradient cosine 0.999, its host syncs
+   counted by ``torch.cuda.set_sync_debug_mode``; stage ms with CUDA
+   events and the device's busy time from ``torch.profiler``);
+   ``[ss variants]`` (``--force-kernel matern32`` and ``--stationary-after``
+   16, 32, 64, three steps each, finite; the tail's float64 error against
+   the exact filter falling with K, zero at K = T - 1); ``[ss predict]``
+   (bridge against union in float64 and float32 at the trained parameters,
+   the force's correlation with the generating one); ``[ss scale]`` (one
+   value and gradient at T = 2000, N = 1e5, with and without
+   ``stationary_after=256``). ``[engines]`` sets the ss step beside cg and
+   xla.
+7. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
 import importlib.util
@@ -611,6 +632,290 @@ def dense_cg(drive, smi):
     return dict(median=median, spread=q3 - q1, peak_gib=peak_gib, corr=(corr_d, corr_s))
 
 
+def _corr(a, b):
+    import torch
+
+    return float(torch.corrcoef(torch.stack([torch.as_tensor(a).double().cpu(),
+                                             torch.as_tensor(b).double().cpu()]))[0, 1])
+
+
+def _cosine(ga, gb):
+    return float(ga @ gb / (ga.norm() * gb.norm()))
+
+
+def _flat_grad(grads):
+    import torch
+
+    return torch.cat([g.reshape(-1).double() for g in grads])
+
+
+def count_syncs(fn):
+    """``(fn(), n)``: n host synchronisations PyTorch reports during
+    ``fn()`` (``torch.cuda.set_sync_debug_mode('warn')``)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def device_busy_ms(fn):
+    """Milliseconds the card spent in kernels and copies during ``fn()``,
+    from ``torch.profiler`` (the sum of the device events' own time); None
+    when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return total_us / 1e3 if total_us > 0 else None
+
+
+def ss_parity(smi):
+    """``[ss parity]``, float64 on the card: ``lfm_mll_ss`` against
+    ``ExactSIMM.mll_gridded`` on a p53-shaped draw at orders 8, 10 and 12
+    (tests/test_statespace.py:81-94: 2e-2, 4e-3, 6e-4, falling), and at the
+    dense10k shape (50 x 200) against the exact MLL: the value within 5e-3 x
+    max(1, |MLL|), the raw gradients' cosine >= 0.999."""
+    import torch
+
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import generic
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    data = port_main.synthetic_dense_data(5, 7, 0, f64, dev)
+    _, y, _ = train_arrays(data, dev, f64)
+    params = simm.init_params(5, dtype=f64, device=dev)
+    model = simm.ExactSIMM(num_genes=5, jitter=1e-4)
+    exact = float(model.mll_gridded(params, data.timepoints, y))
+    errs = {}
+    for order in (8, 10, 12):
+        errs[order] = abs(float(ss.lfm_mll_ss(params, data.timepoints, y, jitter=1e-4,
+                                               order=order, parallel=False)) - exact)
+    limits = {8: 2e-2, 10: 4e-3, 12: 6e-4}
+    print(f"[ss parity] p53-shaped (5 x 7), f64: exact {exact!r}; |ss - exact| by order "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (limits {limits}) ({smi})")
+    for order, err in errs.items():
+        require(err < limits[order], f"ss parity order {order}: {err}")
+    require(errs[12] < errs[10] < errs[8], f"ss parity error does not fall with the order {errs}")
+
+    G, T = DENSE_GENES, DENSE_TIMEPOINTS
+    data = port_main.synthetic_dense_data(G, T, 0, f64, dev)
+    _, y, _ = train_arrays(data, dev, f64)
+    model = simm.ExactSIMM(num_genes=G, jitter=1e-4, canonical_rows=True)
+    raw0 = simm.unconstrain(simm.init_params(G, dtype=f64, device=dev))
+    le, ge = generic.value_and_grad(
+        lambda r: model.mll_gridded(simm.constrain(r), data.timepoints, y), raw0)
+    ls, gs = generic.value_and_grad(
+        lambda r: ss.lfm_mll_ss(simm.constrain(r), data.timepoints, y, jitter=1e-4), raw0)
+    rel = abs(float(ls) - float(le)) / max(1.0, abs(float(le)))
+    cos = _cosine(_flat_grad(gs), _flat_grad(ge))
+    print(f"[ss parity] dense10k shape ({G} x {T}), f64: exact {float(le)!r} ss {float(ls)!r}, "
+          f"|diff| / max(1, |MLL|) {rel:.3e} (limit 5e-3); raw gradient cosine {cos:.6f} "
+          f"(limit 0.999) ({smi})")
+    require(rel <= 5e-3, f"ss parity dense10k shape: {rel}")
+    require(cos >= 0.999, f"ss parity dense10k gradient cosine {cos}")
+
+
+def dense_ss(drive, smi):
+    """``[dense ss]``, ``[ss variants]``, ``[ss predict]`` and ``[ss
+    scale]``: ``main.run_dense --mll-engine ss`` at dense10k's full width
+    (50 x 200, order 10, m = 60), float32, DENSE_STEPS steps; its step
+    times, host time per filter step, host syncs, device share, stages and
+    first step against float64 on the card; the variants; the smoothed
+    force by both interpolations; one value+grad at T = 2000."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import generic
+
+    dev, f32, f64 = torch.device("cuda"), torch.float32, torch.float64
+    G, T, steps = DENSE_GENES, DENSE_TIMEPOINTS, DENSE_STEPS
+    held = {}
+
+    def route(num_iters, **kw):
+        def run():
+            torch.cuda.reset_peak_memory_stats(dev)
+            held["bytes"] = torch.cuda.memory_allocated(dev)
+            return port_main.run_dense(cfg.RunConfig(
+                preset="dense10k", synth_genes=G, synth_timepoints=T, num_iters=num_iters,
+                x64=False, device="cuda", mll_engine="ss", **kw))
+        return run
+
+    dense = drive("dense ss", route(steps), ())
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["bytes"]) / 2**30
+    hist = dense.result.history.tolist()
+    step_ms = [1e3 * t for t in dense.step_seconds]
+    median = statistics.median(step_ms[1:])
+    q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
+    fwd_us = [1e6 * st["forward_host_s"] / T for st in dense.ss_stats]
+    vg_us = [1e6 * st["value_and_grad_host_s"] / T for st in dense.ss_stats]
+    b, s_true, d_true = dense.data.params_ground_truth()
+    corr_d = _corr(dense.result.params.decay, d_true)
+    corr_s = _corr(dense.result.params.sensitivity, s_true)
+    print(f"[dense ss] N={G * T} f32 losses {hist}; recovery corr(decay) {corr_d:.4f} "
+          f"corr(sensitivity) {corr_s:.4f} ({smi})")
+    print(f"[dense ss] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) {median:.3f}, "
+          f"spread (interquartile) {q3 - q1:.3f}; peak memory {peak_gib:.3f} GiB (above the "
+          f"{held['bytes'] / 2**30:.3f} GiB held before the run) ({smi})")
+    print(f"[dense ss] host us per filter step (enqueue / T = {T}): loss "
+          f"{[round(u, 1) for u in fwd_us]}, loss and gradient {[round(u, 1) for u in vg_us]}; "
+          f"host share of the step (median) "
+          f"{statistics.median(v * T / 1e3 for v in vg_us[1:]) / median:.3f} ({smi})")
+    require(all(math.isfinite(v) for v in hist), "dense ss losses not finite")
+    require(bool(torch.isfinite(dense.lf_mean).all() and torch.isfinite(dense.lf_var).all()),
+            "dense ss smoothed force not finite")
+
+    # The first step at the init point in float32 against float64 on the card.
+    y32, t32 = dense.y, dense.data.timepoints
+    raw32 = simm.unconstrain(simm.init_params(G, dtype=f32, device=dev))
+    raw64 = type(raw32)(*(r.double() for r in raw32))
+
+    def objective(y, t):
+        return lambda r: -ss.lfm_mll_ss(simm.constrain(r), t, y, jitter=cfg.EXACT_JITTER)
+
+    # The run's peak above includes the data draw (sample_prior's N x N
+    # factor); one loss and gradient alone:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    (l32, g32), syncs = count_syncs(lambda: generic.value_and_grad(objective(y32, t32), raw32))
+    step_peak_mib = (torch.cuda.max_memory_allocated(dev) - before) / 2**20
+    l64, g64 = generic.value_and_grad(objective(y32.double(), t32.double()), raw64)
+    rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    cos = _cosine(_flat_grad(g32), _flat_grad(g64))
+    print(f"[dense ss] first step: loss f32 {float(l32)!r} f64 {float(l64)!r} rel {rel:.3e} "
+          f"(limit 1e-4); gradient cosine {cos:.6f} (limit 0.999); run's step 1 {hist[0]!r}; "
+          f"host syncs in one value and gradient (T = {T}) {syncs}, its peak memory "
+          f"{step_peak_mib:.1f} MiB ({smi})")
+    require(rel <= 1e-4, f"dense ss first-step loss f32 vs f64: {rel}")
+    require(cos >= 0.999, f"dense ss first-step gradient cosine {cos}")
+    require(abs(float(l32) - hist[0]) <= 1e-5 * abs(hist[0]), "run_dense ss step 1 loss")
+
+    # Where one step's time goes: each stage alone with CUDA events at the
+    # init point; the device's busy time in one step from the profiler.
+    p0 = simm.constrain(raw32)
+    leaves = type(raw32)(*(r.detach().requires_grad_(True) for r in raw32))
+    loss = objective(y32, t32)(leaves)
+    grid = dense.lf_grid
+    nv = dense.var.reshape(G, T).T + cfg.EXACT_JITTER
+
+    def build():
+        f_aug, p_inf, _, _ = ss.build_lfm_ssm(p0.decay, p0.sensitivity, p0.lengthscale)
+        return ss.discretize(f_aug, p_inf, t32[0]), ss.discretize(f_aug, p_inf, t32[1] - t32[0])
+
+    stages = {
+        "build_lfm_ssm + discretize": build,
+        "filter forward (lfm_mll_ss)": lambda: objective(y32, t32)(leaves),
+        "backward": lambda: torch.autograd.grad(loss, tuple(leaves), retain_graph=True),
+        "smoothed force, union (400 steps)": lambda: ss.lfm_predict_ss(
+            p0, t32, y32, grid, noise_var=nv),
+        "smoothed force, bridge": lambda: ss.lfm_predict_ss(p0, t32, y32, grid, noise_var=nv,
+                                                            interp="bridge"),
+    }
+    stage_ms = {name: cuda_ms(fn, reps=3, warmup=1) for name, fn in stages.items()}
+    busy = device_busy_ms(lambda: generic.value_and_grad(objective(y32, t32), raw32))
+    share = "not measured (no device time in the trace)" if busy is None else \
+        f"{busy:.3f} ms busy in one value and gradient, {busy / median:.3f} of the step median"
+    print(f"[dense ss] stage ms {json.dumps(stage_ms)}; step median {median:.3f}; device "
+          f"{share} ({smi})")
+    del loss, leaves
+
+    # [ss variants]: the exact Matern-3/2 prior and the frozen-gain tail.
+    variants = {}
+    for label, kw in (("matern32", {"force_kernel": "matern32"}),
+                      *((f"stationary_after={k}", {"stationary_after": k}) for k in (16, 32, 64))):
+        run = drive(f"ss variants {label}", route(3, **kw), ())
+        h = run.result.history.tolist()
+        ms = [1e3 * t for t in run.step_seconds]
+        require(all(math.isfinite(v) for v in h) and bool(torch.isfinite(run.lf_mean).all()),
+                f"ss variant {label} not finite")
+        variants[label] = (h, ms)
+        print(f"[ss variants] {label}: losses {h}; step ms {[round(t, 3) for t in ms]} ({smi})")
+    # The tail's error against the exact filter, float64 at the init point.
+    p64 = simm.constrain(raw64)
+    y64, t64 = y32.double(), t32.double()
+    with torch.no_grad():
+        exact64 = float(ss.lfm_mll_ss(p64, t64, y64, jitter=cfg.EXACT_JITTER))
+        tail_err = {k: abs(float(ss.lfm_mll_ss(p64, t64, y64, jitter=cfg.EXACT_JITTER,
+                                               stationary_after=k)) - exact64)
+                    for k in (16, 32, 64, T - 1)}
+    print(f"[ss variants] f64 |MLL(stationary_after=K) - exact| at init {tail_err} "
+          f"(must fall with K; K = T - 1 exact) ({smi})")
+    require(tail_err[16] > tail_err[32] > tail_err[64], f"tail error does not fall {tail_err}")
+    require(tail_err[T - 1] == 0.0, f"stationary_after=T-1 differs from the exact filter")
+
+    # [ss predict]: bridge against union, float64 and float32, at the trained
+    # parameters on the route's 200-point grid. The two interpolations
+    # differ by more than roundoff in the JAX package itself (on the CPU, f64:
+    # at 50 x 200 at init its union and bridge variances sit 1.06e-7 apart;
+    # at 6 x 40 after 4 steps its means 1.79e-6 apart, at t = 0, where the
+    # port's means sit 3.3e-10 from JAX's on each route), so f64 is held to
+    # 1e-5 (means) and 1e-6 (variances). float32: measured on
+    # an H100 at this shape after 10 steps 1.07e-2 / 5.0e-5 (CPU: 1.3e-3 /
+    # 2.9e-4 at 50 x 200 at init, 1.35e-2 / 3.3e-5 at 6 x 40): limits 5e-2 / 5e-4.
+    params = dense.result.params
+    limits = {f64: (1e-5, 1e-6), f32: (5e-2, 5e-4)}
+    diffs = {}
+    for dt in (f64, f32):
+        pp = type(params)(*(x.to(dt) for x in params))
+        args = (pp, t32.to(dt), y32.to(dt), grid.to(dt))
+        u = ss.lfm_predict_ss(*args, noise_var=nv.to(dt))
+        br = ss.lfm_predict_ss(*args, noise_var=nv.to(dt), interp="bridge")
+        diffs[dt] = [float((a - b).abs().max()) for a, b in zip(u[:2], br[:2])]
+    p64_trained = type(params)(*(x.double() for x in params))
+    f_at_train = ss.lfm_predict_ss(p64_trained, t64, y64, t64, noise_var=nv.double(),
+                                   interp="bridge")[0]
+    corr_pred = _corr(f_at_train, dense.data.f_true)
+    print(f"[ss predict] bridge vs union max |diff| (f_mean, f_var): f64 {diffs[f64]} (limits "
+          f"{limits[f64]}), f32 {diffs[f32]} (limits {limits[f32]}); f_mean at the training "
+          f"times (bridge, f64) corr with f_true {corr_pred:.4f}; union "
+          f"{stage_ms['smoothed force, union (400 steps)']:.3f} ms, bridge "
+          f"{stage_ms['smoothed force, bridge']:.3f} ms (f32) ({smi})")
+    for dt in (f64, f32):
+        require(all(d <= lim for d, lim in zip(diffs[dt], limits[dt])),
+                f"ss predict bridge vs union {dt}: {diffs[dt]}")
+
+    # [ss scale]: one value and gradient at G = 50, T = 2000 (N = 1e5), float32,
+    # on seeded data (sample_prior's host factor is N^2).
+    T_big = 2000
+    gen = torch.Generator().manual_seed(7)
+    t_big = torch.linspace(0.0, 12.0 * T_big / T, T_big, dtype=f32, device=dev)
+    y_big = (0.125 + torch.randn(G * T_big, generator=gen)).to(f32).to(dev)
+    scale = {}
+    for k in (None, 256):
+        fn = lambda: generic.value_and_grad(lambda r: -ss.lfm_mll_ss(
+            simm.constrain(r), t_big, y_big, jitter=cfg.EXACT_JITTER, stationary_after=k), raw32)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lv, _), n_sync = count_syncs(fn)
+        wall = 1e3 * (time.perf_counter() - t0)
+        scale[k] = wall
+        print(f"[ss scale] G={G} T={T_big} (N={G * T_big}) f32 stationary_after={k}: value and "
+              f"gradient {wall:.3f} ms ({1e3 * wall / T_big:.1f} us a filter step), loss "
+              f"{float(lv)!r}, host syncs {n_sync} ({smi})")
+        require(math.isfinite(float(lv)), f"ss scale loss not finite (stationary_after={k})")
+    return dict(median=median, spread=q3 - q1, peak_gib=peak_gib, corr=(corr_d, corr_s))
+
+
 def main():
     import torch
 
@@ -1043,18 +1348,18 @@ def main():
             b, by = bound_ms(2 * B * B * 4, B**3 / 3)
         rec = dict(max_abs_err=vs_plain, ms=cuda_ms(lambda: fn(A), reps=20),
                    plain_ms=cuda_ms(lambda: plain(A), reps=20), bound_ms=b, bound_by=by,
-                   library_ms=None, shape=f"{B}x{B} f32")
+                   shape=f"{B}x{B} f32")
         if key == "K5":
             rec["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(A), reps=20)
         else:
-            # No single library call computes L and L^{-1}: the cuSOLVER +
-            # cuBLAS pair, for information only.
+            # K4's function, L and L^{-1} of one block, in library calls:
+            # cuSOLVER's factor (cholesky_ex, no host check) and cuBLAS's
+            # triangular solve against the identity.
             eye = torch.eye(B, dtype=f32, device=dev)
-            rec["pair_ms"] = cuda_ms(lambda: torch.linalg.solve_triangular(
-                torch.linalg.cholesky(A), eye, upper=False), reps=20)
+            rec["library_ms"] = cuda_ms(lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky_ex(A)[0], eye, upper=False), reps=20)
         print(f"[{key}] B={B}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
-              f"bound_ms {b:.5f} ({by}) library_ms {rec['library_ms']} "
-              f"cholesky+solve pair ms {rec.get('pair_ms')}")
+              f"bound_ms {b:.5f} ({by}) library_ms {rec['library_ms']:.4f}")
         if key == "K4" and B == 128:
             k4_phases(A)
         if timed == "main":
@@ -1685,6 +1990,13 @@ def main():
           f"{cg['peak_gib']:.3f} GiB, recovery corr {cg['corr'][0]:.4f}/{cg['corr'][1]:.4f}), "
           f"xla {steady_xla:.3f} ms (spread {spread_xla:.3f}, {peak_xla:.3f} GiB, recovery corr "
           f"{xla_corr[0]:.4f}/{xla_corr[1]:.4f}); cg / xla {cg['median'] / steady_xla:.3f} ({smi})")
+
+    ss_parity(smi)
+    ssr = dense_ss(drive, smi)
+    print(f"[engines] dense10k step median: ss {ssr['median']:.3f} ms (spread "
+          f"{ssr['spread']:.3f}, {ssr['peak_gib']:.3f} GiB, recovery corr {ssr['corr'][0]:.4f}/"
+          f"{ssr['corr'][1]:.4f}), cg {cg['median']:.3f} ms, xla {steady_xla:.3f} ms; ss / xla "
+          f"{ssr['median'] / steady_xla:.3f} ({smi})")
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():

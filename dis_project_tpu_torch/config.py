@@ -11,10 +11,12 @@ from typing import Optional, Sequence
 PORTED_PRESETS = ("p53", "p53-replicates", "alfi-parity", "dense10k")
 # The JAX package's other presets; the CLI names them and refuses them.
 NOT_PORTED_PRESETS = ("sparse100k",)
-# Dense-route engines: 'cholesky' (the row/gridded exact route) and 'cg'
-# (ops.iterative); the JAX package's 'dist' and 'ss' are not ported.
-PORTED_ENGINES = ("cholesky", "cg")
-NOT_PORTED_ENGINES = ("dist", "ss")
+# Dense-route engines: 'cholesky' (the row/gridded exact route), 'cg'
+# (ops.iterative) and 'ss' (ops.statespace); the JAX package's 'dist' is
+# not ported.
+PORTED_ENGINES = ("cholesky", "cg", "ss")
+NOT_PORTED_ENGINES = ("dist",)
+FORCE_KERNELS = ("rbf", "matern12", "matern32", "matern52")
 
 # Exact-path jitter (reference src/main.py:41).
 EXACT_JITTER = 1e-4
@@ -35,8 +37,15 @@ class RunConfig:
     seed: int = 0
     synth_genes: int = 50
     synth_timepoints: int = 200
-    # dense10k MLL engine: cholesky (exact) | cg (batched CG + SLQ)
+    # dense10k MLL engine: cholesky (exact) | cg (batched CG + SLQ) | ss
+    # (state-space Kalman engine, O(T))
     mll_engine: str = "cholesky"
+    # state-space engine: the temporally-sharded filter (not yet ported)
+    ss_shard: bool = False
+    # state-space engine force prior: rbf (order-10 SDE) or an exact Matern
+    force_kernel: str = "rbf"
+    # state-space engine: freeze the Kalman gain after this many exact steps
+    stationary_after: Optional[int] = None
     # None = the exact-path default 1e-4 (exact_jitter)
     jitter: Optional[float] = None
     # tie B/S/D across genes (shared-vs-per-gene kinetics ablation)
@@ -58,6 +67,8 @@ class RunConfig:
     checkpoint_dir: Optional[str] = None
     resume: bool = False
     metrics_path: Optional[str] = None  # JSONL per-step metrics
+    # post-training HMC draws (not yet ported)
+    posterior_samples: int = 0
 
     @property
     def exact_jitter(self) -> float:
@@ -87,9 +98,21 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
                         help=f"dense10k timepoint count (default {d.synth_timepoints})")
     parser.add_argument("--mll-engine", default=d.mll_engine,
                         choices=PORTED_ENGINES + NOT_PORTED_ENGINES,
-                        help="dense10k MLL engine: 'cholesky' (exact) or 'cg' "
-                        "(batched CG + stochastic Lanczos quadrature); 'dist' and "
-                        "'ss' are not yet ported")
+                        help="dense10k MLL engine: 'cholesky' (exact), 'cg' "
+                        "(batched CG + stochastic Lanczos quadrature) or 'ss' "
+                        "(state-space Kalman engine, O(T) in timepoints via an "
+                        "order-10 SDE approximation of the force prior); 'dist' is "
+                        "not yet ported")
+    parser.add_argument("--ss-shard", action="store_true",
+                        help="state-space engine: the temporally-sharded filter "
+                        "(not yet ported)")
+    parser.add_argument("--force-kernel", default=d.force_kernel, choices=FORCE_KERNELS,
+                        help="state-space engine force prior: 'rbf' (order-10 SDE "
+                        "approximation) or an exact Matern prior (requires "
+                        "--mll-engine ss)")
+    parser.add_argument("--stationary-after", type=int, default=d.stationary_after,
+                        help="state-space engine: freeze the Kalman gain after this "
+                        "many exact warmup steps (requires --mll-engine ss)")
     parser.add_argument("--jitter", type=float, default=d.jitter,
                         help="diagonal jitter (default 1e-4)")
     parser.add_argument("--num-iters", type=int, default=d.num_iters,
@@ -114,6 +137,8 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
                         help="resume from the latest checkpoint in "
                         "--checkpoint-dir (params + optimizer state)")
     parser.add_argument("--metrics-path", default=None)
+    parser.add_argument("--posterior-samples", type=int, default=d.posterior_samples,
+                        help="post-training HMC draws (not yet ported)")
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
@@ -127,6 +152,9 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         synth_genes=args.synth_genes,
         synth_timepoints=args.synth_timepoints,
         mll_engine=args.mll_engine,
+        ss_shard=args.ss_shard,
+        force_kernel=args.force_kernel,
+        stationary_after=args.stationary_after,
         jitter=args.jitter,
         shared_kinetics=args.shared_kinetics,
         num_iters=args.num_iters,
@@ -142,4 +170,5 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         checkpoint_dir=args.checkpoint_dir,
         resume=args.resume,
         metrics_path=args.metrics_path,
+        posterior_samples=args.posterior_samples,
     )

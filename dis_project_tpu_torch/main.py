@@ -28,7 +28,12 @@ says otherwise:
   Gram of ``ExactSIMM.mll_gridded``; Adam. ``--mll-engine cg``: the
   matmul-only engine (``ExactSIMM.mll_iterative``: K2 and K2's backward on
   the card in float32, batched CG and stochastic Lanczos quadrature),
-  gradient clipping and Adam (:func:`fit_cg`).
+  gradient clipping and Adam (:func:`fit_cg`). ``--mll-engine ss``: the
+  O(T) state-space Kalman engine (``ops.statespace.lfm_mll_ss``, with
+  ``--force-kernel`` and ``--stationary-after``), Adam, then the smoothed
+  latent force on a 200-point grid (``lfm_predict_ss``); its plot
+  ``lf_dense_ss_lf.png`` is :func:`dense_ss_report`'s, drawn where
+  matplotlib is installed.
 
 Every other preset, engine, model family and flag of the JAX CLI fails with
 "not yet ported".
@@ -38,7 +43,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
+import statistics
 import time
 from typing import Any, List, Optional
 
@@ -74,6 +81,12 @@ class DenseRun:
     # CG route: per step, batched_cg's stats; and the exact final loss
     cg_stats: Optional[List[dict]] = None
     final_loss: Optional[float] = None
+    # ss route: per step, the host seconds of the loss and of value_and_grad;
+    # the smoothed latent force (mean, variance) on its 200-point grid
+    ss_stats: Optional[List[dict]] = None
+    lf_grid: Optional[torch.Tensor] = None
+    lf_mean: Optional[torch.Tensor] = None
+    lf_var: Optional[torch.Tensor] = None
 
 
 def _final_loss(hist) -> float:
@@ -390,6 +403,7 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     from dis_project_tpu_torch.data.dataset import train_arrays
     from dis_project_tpu_torch.models import simm
     from dis_project_tpu_torch.ops import iterative
+    from dis_project_tpu_torch.ops import statespace as ss_ops
     from dis_project_tpu_torch.ops.precision import default_device, dtype_for
     from dis_project_tpu_torch.training import generic
     from dis_project_tpu_torch.training import trainer as tr
@@ -405,7 +419,7 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     model = simm.ExactSIMM(num_genes=G, jitter=config.exact_jitter, canonical_rows=True)
     raw = simm.unconstrain(simm.init_params(G, dtype=dtype, device=dev))
     t0 = time.perf_counter()
-    cg_stats = None
+    cg_stats = ss_stats = None
     if config.mll_engine == "cg":
         print(f"Training (full-batch exact MLL, CG/Lanczos engine, {dtype})...")
         gen = torch.Generator().manual_seed(config.seed + 1)
@@ -422,14 +436,28 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
               f"{[s['converged'] for s in cg_stats]} of {1 + CG_PROBES}; host us per "
               f"iteration {[round(u, 1) for u in us]}")
     else:
-        route = dense_gram(dev, dtype)
-        print(f"Training (full-batch exact MLL, {route} Gram, Cholesky engine, {dtype})...")
         timepoints = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
+        if config.mll_engine == "ss":
+            print(f"Training (full-batch exact MLL, {ss_engine(config)})...")
+            ss_stats, forward_s = [], []
 
-        def objective(r):
-            if route == "row":
-                return -model.mll(simm.constrain(r), X, y)
-            return -model.mll_gridded(simm.constrain(r), timepoints, y)
+            def objective(r):
+                ts = time.perf_counter()
+                loss = -ss_ops.lfm_mll_ss(
+                    simm.constrain(r), timepoints, y, jitter=model.jitter,
+                    force_kernel=config.force_kernel,
+                    stationary_after=config.stationary_after,
+                )
+                forward_s.append(time.perf_counter() - ts)
+                return loss
+        else:
+            route = dense_gram(dev, dtype)
+            print(f"Training (full-batch exact MLL, {route} Gram, Cholesky engine, {dtype})...")
+
+            def objective(r):
+                if route == "row":
+                    return -model.mll(simm.constrain(r), X, y)
+                return -model.mll_gridded(simm.constrain(r), timepoints, y)
 
         optimizer = generic.Adam(config.learning_rate)
         opt_state = optimizer.init(raw)
@@ -437,13 +465,25 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
         for _ in range(config.num_iters):
             ts = time.perf_counter()
             loss, grads = generic.value_and_grad(objective, raw)
+            vg_s = time.perf_counter() - ts
             updates, opt_state = optimizer.update(grads, opt_state)
             raw = generic.apply_updates(raw, updates)
             losses.append(float(loss))  # host fetch: the step has finished
             norms.append(float(generic.global_norm(grads)))
             step_seconds.append(time.perf_counter() - ts)
+            if ss_stats is not None:
+                ss_stats.append({"forward_host_s": forward_s[-1], "value_and_grad_host_s": vg_s})
         params = simm.constrain(raw)
         final = _final_loss(losses)
+        if ss_stats:
+            # The loop enqueues without a sync: on the card its host time
+            # per filter step, beside the step's wall, says who sets the pace.
+            fwd_us = statistics.median(1e6 * st["forward_host_s"] / T for st in ss_stats)
+            vg_us = statistics.median(1e6 * st["value_and_grad_host_s"] / T for st in ss_stats)
+            step_ms = statistics.median(1e3 * t for t in step_seconds)
+            print(f"State-space step: median {step_ms:.3f} ms; host us per filter step "
+                  f"{fwd_us:.1f} (loss) / {vg_us:.1f} (loss and gradient); host share of the "
+                  f"step {vg_us * T / (1e3 * step_ms):.3f}")
     wall = time.perf_counter() - t0
     res = tr.TrainResult(
         params=params,
@@ -462,17 +502,84 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     corr_s = float(np.corrcoef(trained_s, s)[0, 1])
     print(f"Ground-truth recovery: corr(decay)={corr_d:.3f} "
           f"corr(sensitivity)={corr_s:.3f}")
-    return DenseRun(res, model, data, X, y, var, step_seconds, cg_stats, final)
+    out = DenseRun(res, model, data, X, y, var, step_seconds, cg_stats, final, ss_stats)
+    if config.mll_engine == "ss":
+        # The smoothed latent force: the dense conditional is O(N^3) at this
+        # scale, the engine's RTS pass O(T) (JAX main.py:1429-1439).
+        out.lf_grid = torch.linspace(float(timepoints[0]), float(timepoints[-1]) * 13.0 / 12.0,
+                                     200, dtype=dtype, device=dev)
+        nv = var.reshape(G, T).T + model.jitter
+        out.lf_mean, out.lf_var, _, _ = ss_ops.lfm_predict_ss(
+            params, timepoints, y, out.lf_grid, noise_var=nv, force_kernel=config.force_kernel)
+    return out
+
+
+def ss_engine(config: cfg.RunConfig) -> str:
+    """The state-space route's engine description (JAX main.py:1303-1314)."""
+    prior = ("order-10 SDE" if config.force_kernel == "rbf"
+             else f"EXACT {config.force_kernel} prior")
+    engine = f"state-space Kalman engine (O(T), {prior})"
+    if config.stationary_after is not None:
+        engine += f", steady-state gain after {config.stationary_after} warmup steps"
+    return engine
+
+
+def dense_ss_report(config: cfg.RunConfig, out: DenseRun) -> None:
+    """The state-space route's host work: the smoothed latent force against
+    the generating force (``lf_dense_ss_lf.png``), where matplotlib is
+    installed."""
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed: the smoothed latent-force plot is not drawn")
+        return
+    from dis_project_tpu_torch.models.base import Gaussian
+    from dis_project_tpu_torch.reporting import plotter
+
+    plotter.plot_lf(out.lf_grid[:, None], Gaussian(mean=out.lf_mean, cov=torch.diag(out.lf_var)),
+                    y_scatter=out.data.f_true, scatter_times=out.data.timepoints,
+                    title="Smoothed latent force (state-space engine)",
+                    save_name="dense_ss_lf", out_dir=config.out_dir)
+    print(f"Smoothed latent-force plot saved under {config.out_dir}/")
 
 
 PORTED_FLAGS = (
-    "--preset p53|p53-replicates|alfi-parity|dense10k, --mll-engine cholesky|cg, "
+    "--preset p53|p53-replicates|alfi-parity|dense10k, --mll-engine cholesky|cg|ss, "
+    "--force-kernel, --stationary-after, "
     "--replicate, --genes, --data-dir, --data-source, --seed, --synth-genes, "
     "--synth-timepoints, --jitter, --num-iters, --learning-rate, --optimizer, "
     "--no-fix-params, --shared-kinetics, --steps-per-epoch, --track-parameters, "
     "--no-x64, --device, --out-dir, --save-name, --checkpoint-dir, --resume, "
     "--metrics-path"
 )
+
+
+def check_ss_flags(config: cfg.RunConfig) -> None:
+    """The state-space flags' guards, with the JAX package's messages
+    (dis_project_tpu/main.py:2163-2193, the first-order route's)."""
+    if config.ss_shard and config.mll_engine != "ss":
+        raise SystemExit(
+            "--ss-shard requires --mll-engine ss (it shards the Kalman "
+            "filter's time axis)"
+        )
+    if config.stationary_after is not None:
+        if config.mll_engine != "ss":
+            raise SystemExit(
+                "--stationary-after requires --mll-engine ss (it freezes "
+                "the Kalman gain at the covariance fixed point)"
+            )
+        if config.ss_shard:
+            raise SystemExit(
+                "--stationary-after is incompatible with --ss-shard "
+                "(the sharded filter keeps per-chunk exact covariances)"
+            )
+        if config.stationary_after < 1:
+            raise SystemExit("--stationary-after must be >= 1")
+    if config.force_kernel != "rbf" and config.mll_engine != "ss":
+        raise SystemExit(
+            "--force-kernel requires --mll-engine ss (the Matern priors "
+            "are exactly Markovian but have NO closed-form dense Gram; "
+            "every state-space route supports them — multisimm applies "
+            "the kernel to every force)"
+        )
 
 
 def main(argv=None):
@@ -492,10 +599,18 @@ def main(argv=None):
                          "dense10k route")
     if config.resume and not config.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
+    check_ss_flags(config)
+    if config.ss_shard:
+        raise SystemExit("--ss-shard (the temporally-sharded filter) is not yet ported")
+    if config.posterior_samples:
+        raise SystemExit("--posterior-samples (HMC) is not yet ported")
     if config.preset == "alfi-parity":
         return run_alfi_parity(config)
     if config.preset == "dense10k":
-        return run_dense(config)
+        out = run_dense(config)
+        if config.mll_engine == "ss":
+            dense_ss_report(config, out)
+        return out
     if config.preset == "p53-replicates":
         config.replicate = None
     return run(config)

@@ -37,15 +37,9 @@ from typing import Optional
 
 import torch
 
+from dis_project_tpu_torch.ops.precision import assert_full_fp32
+
 LOG_2PI = 1.8378770664093453
-
-
-def _assert_full_fp32():
-    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError(
-            "ops.iterative needs full-FP32 products: TF32 is on "
-            "(ops.precision.pin_full_fp32 turns it off)"
-        )
 
 
 def batched_cg(sigma, b, *, tol: Optional[float] = None, max_iters: int = 256,
@@ -59,7 +53,7 @@ def batched_cg(sigma, b, *, tol: Optional[float] = None, max_iters: int = 256,
     the iteration count, the number of converged columns and the loop's
     host seconds.
     """
-    _assert_full_fp32()
+    assert_full_fp32("ops.iterative")
     if tol is None:
         tol = 100 * float(torch.finfo(b.dtype).eps)
     thresh = tol * torch.clamp(torch.linalg.vector_norm(b, dim=0), min=1e-30)
@@ -95,7 +89,7 @@ def lanczos(sigma, v0, m: int):
     Returns ``(alphas, betas)``, (P, m) and (P, m - 1): the tridiagonals
     T_m, one per probe.
     """
-    _assert_full_fp32()
+    assert_full_fp32("ops.iterative")
     n, n_probes = v0.shape
     V = v0.new_zeros((m, n, n_probes))
     V[0] = v0 / torch.linalg.vector_norm(v0, dim=0)

@@ -34,6 +34,16 @@ def pin_full_fp32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+def assert_full_fp32(who: str) -> None:
+    """Raise unless float32 products are full FP32 (TF32 off): the check
+    that ``who``'s entry points make before they compute."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            f"{who} needs full-FP32 products: TF32 is on "
+            "(ops.precision.pin_full_fp32 turns it off)"
+        )
+
+
 def default_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else
     ``cuda``. Raises when ``cuda`` is wanted and no card is visible."""

@@ -1,0 +1,837 @@
+r"""State-space (Markovian) LFM engine: O(T) inference for the first-order
+SIMM family by Kalman filtering and RTS smoothing.
+
+Port of the first-order route of ``dis_project_tpu/ops/statespace.py``
+(same function and argument names). The latent force's RBF prior is
+approximated by a balanced order-``p`` linear SDE (or replaced by an exact
+Matern SDE), the gene ODEs ``dx_j/dt = B_j + S_j f - D_j x_j`` are linear
+state evolution, so the augmented state ``z = [f-state (p), x (G)]`` is
+jointly Markov-Gaussian and the MLL of the approximated model is a Kalman
+filter: O(T (p+G)^3) work instead of O((GT)^3).
+
+- Host constants (:func:`canonical_system`, :func:`matern_canonical_system`):
+  numpy/scipy, float64, cached per order and kind.
+- :func:`build_lfm_ssm` and :func:`discretize`: differentiable in decay,
+  sensitivity and lengthscale; ``discretize`` buckets a vector of steps on
+  the host (one ``matrix_exp`` per distinct step).
+- :func:`kalman_filter`: a Python loop over the steps with the JAX scan's
+  per-step algebra (Joseph-form updates, one Cholesky of the innovation
+  covariance for gain and log-density). Nothing in the loop syncs with the
+  host: the Cholesky is ``cholesky_ex`` with a non-PD innovation
+  covariance turned into a NaN factor on the device (the JAX semantics the
+  finite guards rely on), and a ``mask`` is read on the host once.
+- :func:`lfm_mll_ss`: the MLL (uniform grids share one (A, Q); optional
+  per-entry ``obs_mask`` and the frozen-gain ``stationary_after`` tail).
+- :func:`rts_smoother` and :func:`lfm_predict_ss`: smoothed posteriors on
+  the union grid or by bridge interpolation, under ``torch.no_grad``.
+
+Only the sequential schedule is ported: ``parallel=None``/``False`` give
+it, as JAX resolves ``None`` on every single device; the associative-scan,
+blocked and temporally-sharded schedules raise ``NotImplementedError``.
+
+Float32 products must be full FP32: the covariance recursion
+``P <- A P A^T + Q`` compounds a reduced-precision product over T steps
+(the JAX package measured the MLL ~1.7 nats off and NaN within one Adam
+step with single-pass products). Every entry point asserts that TF32 is
+off (``ops.precision.pin_full_fp32`` turns it off).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dis_project_tpu_torch.ops.precision import assert_full_fp32
+
+LOG_2PI = 1.8378770664093453
+_WHO = "ops.statespace"
+
+
+def _host(a) -> np.ndarray:
+    """A host numpy copy of a tensor or array-like (a sync for a CUDA tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+# ---------------------------------------------------------------------------
+# Canonical (unit-time-scale) force SDEs — host-side f64 constants, cached.
+# ---------------------------------------------------------------------------
+
+
+def _psd_sqrt(a: np.ndarray) -> np.ndarray:
+    """Symmetric PSD square root via eigh, eigenvalues clipped at
+    ``eps * max`` (the highest-order modes of the RBF SDE carry Hankel
+    singular values near f64 eps, where a plain Cholesky fails)."""
+    w, v = np.linalg.eigh(a)
+    w = np.clip(w, np.finfo(np.float64).eps * w.max(), None)
+    return v @ np.diag(np.sqrt(w))
+
+
+@functools.lru_cache(maxsize=None)
+def canonical_system(order: int):
+    """Balanced LTI SDE realising ``k(tau) ~= exp(-tau^2)`` at unit
+    time-scale ``l/2 = 1``: host f64 ``(F_c, h_c, q_c, p_diag)`` — the
+    stable drift (p, p), the row reading f (p,), the white-noise density
+    and the stationary covariance's diagonal (p,), exactly diagonal by
+    construction. Roots of the truncated series ``sum_{k<=p} z^k / k!``
+    give the spectral factorisation (Hartikainen & Sarkka 2010); companion
+    form, then balanced with the two Gramians' square roots."""
+    from scipy.linalg import solve_lyapunov, svd
+
+    p = order
+    coeffs = [1.0 / math.factorial(k) for k in range(p, -1, -1)]
+    z = np.roots(coeffs)
+    w = np.sqrt(-z.astype(complex))
+    w = np.where(w.real > 0, -w, w)  # stable half-plane
+    a = np.poly(w).real  # monic stable polynomial, length p+1
+
+    f_comp = np.zeros((p, p))
+    f_comp[: p - 1, 1:] = np.eye(p - 1)
+    f_comp[p - 1, :] = -a[::-1][:p]
+    lvec = np.zeros(p)
+    lvec[p - 1] = 1.0
+    hvec = np.zeros(p)
+    hvec[0] = 1.0
+    q_c = 2.0 * np.sqrt(np.pi) * math.factorial(p)
+
+    gram_c = solve_lyapunov(f_comp, -q_c * np.outer(lvec, lvec))
+    gram_o = solve_lyapunov(f_comp.T, -np.outer(hvec, hvec))
+    r_c = _psd_sqrt(gram_c)
+    r_o = _psd_sqrt(gram_o)
+    u, s, vt = svd(r_o.T @ r_c)
+    t_bal = r_c @ vt.T @ np.diag(s**-0.5)
+    t_inv = np.diag(s**-0.5) @ u.T @ r_o.T
+    f_bal = t_inv @ f_comp @ t_bal
+    h_bal = hvec @ t_bal
+    # In balanced coordinates the stationary covariance IS diag(s).
+    return f_bal, h_bal, q_c, s
+
+
+@functools.lru_cache(maxsize=None)
+def matern_canonical_system(kind: str):
+    """Exact canonical LTI SDE of a Matern force prior at unit rate, in
+    coordinates with identity stationary covariance: host f64 ``(F_c, h_c,
+    p_diag)``, ``p_diag = ones(p)``, p = 1/2/3 for matern12/32/52. The
+    physical system at lengthscale ``l`` is ``F = F_c * sqrt(2 nu) / l``."""
+    from scipy.linalg import solve_lyapunov
+
+    if kind == "matern12":
+        f = np.array([[-1.0]])
+        lvec = np.array([1.0])
+        q = 2.0
+    elif kind == "matern32":
+        f = np.array([[0.0, 1.0], [-1.0, -2.0]])
+        lvec = np.array([0.0, 1.0])
+        q = 4.0
+    elif kind == "matern52":
+        f = np.array([
+            [0.0, 1.0, 0.0],
+            [0.0, 0.0, 1.0],
+            [-1.0, -3.0, -3.0],
+        ])
+        lvec = np.array([0.0, 0.0, 1.0])
+        q = 16.0 / 3.0
+    else:
+        raise ValueError(
+            f"unknown force kernel {kind!r}; expected rbf, matern12, "
+            "matern32 or matern52"
+        )
+    p_inf = solve_lyapunov(f, -q * np.outer(lvec, lvec))
+    # Whiten: identity stationary covariance (the diagonal form the
+    # augmented builder assumes).
+    l_chol = np.linalg.cholesky(p_inf)
+    l_inv = np.linalg.inv(l_chol)
+    f_bal = l_inv @ f @ l_chol
+    h_bal = np.zeros(f.shape[0])
+    h_bal[0] = 1.0
+    h_bal = h_bal @ l_chol
+    return f_bal, h_bal, np.ones(f.shape[0])
+
+
+_FORCE_RATE = {
+    "rbf": 2.0,            # canonical time unit is l/2
+    "matern12": 1.0,       # lambda = sqrt(2 nu)/l, nu = 1/2
+    "matern32": math.sqrt(3.0),
+    "matern52": math.sqrt(5.0),
+}
+
+
+def _force_system(order: int, force_kernel: str):
+    """(F_c, h_c, p_diag, rate_over_l) of the force prior; ``order``
+    applies to the RBF approximation only."""
+    if force_kernel == "rbf":
+        f_c, h_c, _, p_diag = canonical_system(order)
+    else:
+        f_c, h_c, p_diag = matern_canonical_system(force_kernel)
+    return f_c, h_c, p_diag, _FORCE_RATE[force_kernel]
+
+
+# ---------------------------------------------------------------------------
+# The augmented (force-state, genes) model — differentiable in the params.
+# ---------------------------------------------------------------------------
+
+
+def build_lfm_ssm(decay, sens, lengthscale, order: int = 10, force_kernel: str = "rbf"):
+    """Augmented LFM state-space model of the first-order SIMM:
+    ``(F, P_inf, P0, h_force)``, each (m, m) or (m,), m = p + G.
+
+    ``F = [[F_f, 0], [S h_c^T, -diag(D)]]`` with the force block scaled by
+    ``rate / l``; ``P_inf`` the stationary covariance from the constant
+    force block and closed-form cross/gene blocks (one batched (p, p)
+    solve over the genes, ``solve_ex`` so that nothing syncs); ``P0`` the
+    reference's t=0 convention (force stationary, genes deterministic at
+    ``B/D``); ``h_force`` reads f(t) out of the state."""
+    dtype, dev = decay.dtype, decay.device
+    f_c, h_c, p_diag, rate = _force_system(order, force_kernel)
+    p = f_c.shape[0]
+    g = decay.shape[0]
+    kw = dict(dtype=dtype, device=dev)
+
+    f_c = torch.as_tensor(f_c, **kw)
+    h_c = torch.as_tensor(h_c, **kw)
+    p_ff = torch.as_tensor(np.diag(p_diag), **kw)
+
+    f_force = f_c * (rate / lengthscale)
+    top = torch.cat([f_force, torch.zeros((p, g), **kw)], dim=1)
+    bottom = torch.cat([sens[:, None] * h_c[None, :], -torch.diag(decay)], dim=1)
+    f_aug = torch.cat([top, bottom], dim=0)
+
+    # fx column j: (F_f - D_j I) c_j = -S_j P_ff h_c;
+    # xx: (D_i + D_j) P_xx[i, j] = sym(S_i (h_c P_fx)[j]).
+    rhs = p_ff @ h_c  # (p,)
+    eye_p = torch.eye(p, **kw)
+    mats = f_force[None, :, :] - decay[:, None, None] * eye_p
+    sol, _ = torch.linalg.solve_ex(mats, rhs.expand(g, p)[..., None])
+    p_fx = (-sens[:, None] * sol[..., 0]).T  # (p, g)
+    hp = h_c @ p_fx  # (g,)
+    mx = sens[:, None] * hp[None, :]
+    p_xx = (mx + mx.T) / (decay[:, None] + decay[None, :])
+    p_inf = torch.cat([torch.cat([p_ff, p_fx], dim=1), torch.cat([p_fx.T, p_xx], dim=1)],
+                      dim=0)
+    p0 = F.pad(p_ff, (0, g, 0, g))
+    h_force = torch.cat([h_c, torch.zeros((g,), **kw)])
+    return f_aug, p_inf, p0, h_force
+
+
+def _symmetrize(p):
+    return 0.5 * (p + p.mT)
+
+
+def discretize(f_aug, p_inf, dts, max_unique: int | None = None):
+    """Exact discretization over step sizes ``dts`` (scalar or (T,)):
+    ``A = expm(F dt)`` and ``Q = P_inf - A P_inf A^T`` (the stationarity
+    identity). A scalar step returns (m, m) matrices; a (T,) vector returns
+    (T, m, m), one ``matrix_exp`` per DISTINCT step gathered to the steps
+    (the steps are read on the host; equal steps get bitwise-equal
+    transitions).
+
+    ``max_unique``: a checked bound on the number of distinct steps —
+    ``ValueError`` when ``dts`` holds more (the JAX package's silent
+    nearest-bucket gather under jit has no counterpart in the port)."""
+
+    def expm_q(dt):
+        a = torch.linalg.matrix_exp(f_aug * dt[..., None, None])
+        return a, _symmetrize(p_inf - a @ p_inf @ a.mT)
+
+    if not isinstance(dts, torch.Tensor):
+        dts = torch.as_tensor(dts, dtype=f_aug.dtype, device=f_aug.device)
+    if dts.ndim == 0:
+        return expm_q(dts)
+    u, inv = np.unique(_host(dts), return_inverse=True)
+    if max_unique is not None and u.size > max_unique:
+        raise ValueError(
+            f"the step sizes hold {u.size} distinct values, more than "
+            f"max_unique={max_unique}"
+        )
+    a_u, q_u = expm_q(torch.as_tensor(u, dtype=dts.dtype, device=f_aug.device))
+    idx = torch.as_tensor(inv.reshape(-1), device=f_aug.device)
+    return a_u[idx], q_u[idx]
+
+
+def gene_observation_matrix(order: int, num_genes: int, replicates: int = 1,
+                            dtype=torch.float64, device=None):
+    """H reading the gene states out of ``z``, replicate-tiled (replicates
+    share one latent trajectory and differ only in observation noise)."""
+    h_x = torch.cat([torch.zeros((num_genes, order), dtype=dtype, device=device),
+                     torch.eye(num_genes, dtype=dtype, device=device)], dim=1)
+    return h_x.repeat(replicates, 1)
+
+
+# ---------------------------------------------------------------------------
+# Kalman filtering (the sequential schedule).
+# ---------------------------------------------------------------------------
+
+
+def _cholesky(s_mat):
+    """Lower Cholesky factor without a host sync: NaN where ``s_mat`` is not
+    positive definite (``jnp.linalg.cholesky``'s answer)."""
+    chol, info = torch.linalg.cholesky_ex(s_mat)
+    return torch.where((info > 0)[..., None, None], torch.nan, chol)
+
+
+def _gauss_ll_chol(r, chol):
+    """log N(r; 0, L L^T) from the innovation covariance's factor."""
+    al = torch.linalg.solve_triangular(chol, r[:, None], upper=False)[:, 0]
+    return (
+        -0.5 * torch.sum(al * al)
+        - torch.sum(torch.log(torch.diagonal(chol)))
+        - 0.5 * r.shape[0] * LOG_2PI
+    )
+
+
+def _gauss_ll(r, s_mat):
+    """log N(r; 0, s_mat) for one innovation (n_o,)."""
+    return _gauss_ll_chol(r, _cholesky(s_mat))
+
+
+def _joseph_update(m_pred, p_pred, h, r_var, y):
+    """One measurement update: ``(m, P, ll)``, Joseph-form covariance; one
+    Cholesky of the innovation covariance serves the gain and the
+    log-density."""
+    hp = h @ p_pred
+    s_mat = hp @ h.T + torch.diag(r_var)
+    chol = _cholesky(s_mat)
+    r = y - h @ m_pred
+    gain = torch.cholesky_solve(hp, chol).T  # P H^T S^-1
+    m_new = m_pred + gain @ r
+    ikh = torch.eye(p_pred.shape[0], dtype=p_pred.dtype, device=p_pred.device) - gain @ h
+    p_new = ikh @ p_pred @ ikh.T + (gain * r_var[None, :]) @ gain.T
+    return m_new, _symmetrize(p_new), _gauss_ll_chol(r, chol)
+
+
+def _joseph_update_sel(m_pred, p_pred, p_off, r_var, y):
+    """:func:`_joseph_update` for the selection ``H = [0 | I_{n_o} | 0]``
+    reading state coordinates ``p_off : p_off + n_o``: ``H P`` is a row
+    slice, ``S`` a corner slice and ``I - K H`` a column update."""
+    n_o = y.shape[0]
+    m_dim = p_pred.shape[0]
+    pg = p_pred[p_off:p_off + n_o, :]  # H P  (n_o, m)
+    s_mat = pg[:, p_off:p_off + n_o] + torch.diag(r_var)
+    chol = _cholesky(s_mat)
+    r = y - m_pred[p_off:p_off + n_o]
+    gain = torch.cholesky_solve(pg, chol).T  # (m, n_o)
+    m_new = m_pred + gain @ r
+    eye = torch.eye(m_dim, dtype=p_pred.dtype, device=p_pred.device)
+    ikh = eye - F.pad(gain, (p_off, m_dim - p_off - n_o))
+    p_new = ikh @ p_pred @ ikh.T + (gain * r_var[None, :]) @ gain.T
+    return m_new, _symmetrize(p_new), _gauss_ll_chol(r, chol)
+
+
+def _mask_obs(h, r_var, ys, obs_mask):
+    """Per-entry masking as an exact input transform: a missing entry's H
+    row is zeroed, its noise variance set to 1 and its (possibly NaN)
+    observation to 0, so its innovation coordinate is N(0; 0, 1),
+    decoupled from the rest; :func:`_mask_ll_correction` adds back the
+    constant it contributes. Returns per-step ``h`` (T, n_o, m) and
+    sanitised ``(r_var, ys)``."""
+    h_t = h[None, :, :] * obs_mask[:, :, None]
+    r_var = torch.where(obs_mask > 0, r_var, torch.ones_like(r_var))
+    ys = torch.where(obs_mask > 0, ys, torch.zeros_like(ys))
+    return h_t, r_var, ys
+
+
+def _mask_ll_correction(obs_mask):
+    """(T,) per-step corrections for :func:`_mask_obs`: +log(2 pi)/2 per
+    masked entry."""
+    n_o = obs_mask.shape[1]
+    return 0.5 * LOG_2PI * (n_o - obs_mask.sum(dim=1))
+
+
+def kalman_filter(a, q, h, r_var, ys, p0, m0=None, mask=None, obs_mask=None,
+                  obs_slice=None):
+    """Sequential Kalman filter.
+
+    ``a``/``q``: (m, m) shared by all steps or (T, m, m); ``h``: (n_o, m);
+    ``r_var``: (n_o,) or (T, n_o); ``ys``: (T, n_o) centered observations;
+    ``p0``: the prior covariance before the first transition. ``mask``:
+    optional (T,) {0, 1}, read on the host — steps with 0 skip the update
+    and add no likelihood. ``obs_mask``: optional (T, n_o) {0, 1} per-entry
+    missingness (those entries of ``ys`` may be NaN). ``obs_slice``: the
+    promise that ``h`` is the selection ``[0 | I]`` of the last ``n_o``
+    coordinates (the sliced update; ignored with ``obs_mask``).
+
+    Returns ``(ms, ps, ll)``: filtered means (T, m), covariances (T, m, m)
+    and the marginal log-likelihood. No step syncs with the host.
+    """
+    assert_full_fp32(_WHO)
+    t_steps, n_o = ys.shape
+    m_dim = p0.shape[0]
+    dtype, dev = p0.dtype, p0.device
+    if m0 is None:
+        m0 = torch.zeros((m_dim,), dtype=dtype, device=dev)
+    r_var = torch.broadcast_to(torch.as_tensor(r_var, dtype=dtype, device=dev), (t_steps, n_o))
+    h_t = ll_corr = None
+    if obs_mask is not None:
+        obs_mask = torch.as_tensor(obs_mask, dtype=dtype, device=dev)
+        h_t, r_var, ys = _mask_obs(h, r_var, ys, obs_mask)
+        ll_corr = _mask_ll_correction(obs_mask)
+        obs_slice = None
+    weights = None if mask is None else _host(mask).reshape(t_steps).tolist()
+    shared_aq = a.ndim == 2
+
+    m_cur, p_cur = m0, p0
+    ll = torch.zeros((), dtype=dtype, device=dev)
+    ms, ps = [], []
+    for i in range(t_steps):
+        a_i, q_i = (a, q) if shared_aq else (a[i], q[i])
+        m_pred = a_i @ m_cur
+        p_pred = _symmetrize(a_i @ p_cur @ a_i.T + q_i)
+        w = 1.0 if weights is None else weights[i]
+        if w > 0:
+            if obs_slice is not None:
+                m_cur, p_cur, ll_i = _joseph_update_sel(m_pred, p_pred, obs_slice, r_var[i], ys[i])
+            else:
+                h_i = h if h_t is None else h_t[i]
+                m_cur, p_cur, ll_i = _joseph_update(m_pred, p_pred, h_i, r_var[i], ys[i])
+            if ll_corr is not None:
+                ll_i = ll_i + ll_corr[i]
+            ll = ll + (ll_i if w == 1.0 else w * ll_i)
+        else:
+            m_cur, p_cur = m_pred, p_pred
+        ms.append(m_cur)
+        ps.append(p_cur)
+    return torch.stack(ms), torch.stack(ps), ll
+
+
+# ---------------------------------------------------------------------------
+# Schedules, the MLL and its steady-state tail.
+# ---------------------------------------------------------------------------
+
+
+def _select_schedule(parallel, t_steps):
+    """The (filter, smoother) pair of ``parallel``: ``None`` and ``False``
+    give the sequential pair (JAX's ``None`` resolves to it on every single
+    device). The log-depth (``True``) and blocked (``'blocked'`` or an int
+    block length) schedules are not yet ported."""
+    del t_steps
+    if parallel is None or parallel is False:
+        return kalman_filter, rts_smoother
+    if isinstance(parallel, int) and not isinstance(parallel, bool) and parallel < 2:
+        raise ValueError(
+            f"parallel={parallel}: an integer selects the blocked "
+            "schedule's block length and must be >= 2; pass "
+            "True/False for the associative/sequential schedules"
+        )
+    raise NotImplementedError(
+        f"parallel={parallel!r}: the associative-scan and blocked schedules "
+        "are not yet ported (ROADMAP Queue 1 item 10); use parallel=None or False"
+    )
+
+
+def _sel_kwargs(fil, obs_slice):
+    """Forward the selection-H promise to the sequential filter."""
+    if fil is kalman_filter and obs_slice is not None:
+        return {"obs_slice": obs_slice}
+    return {}
+
+
+def _refuse_shard(shard):
+    if shard is not None:
+        raise NotImplementedError(
+            "shard=: the temporally-sharded filter is not yet ported "
+            "(ROADMAP Queue 1 item 17)"
+        )
+
+
+def lfm_mll_ss(params, timepoints, y, *, jitter: float, replicates: int = 1,
+               order: int = 10, parallel=None, uniform: bool = True, shard=None,
+               obs_mask=None, force_kernel: str = "rbf",
+               stationary_after: int | None = None):
+    """State-space marginal log-likelihood of gridded SIMM data: the
+    layout of ``ExactSIMM.mll_gridded`` (gene-major blocks of one shared
+    time grid, replicate-tiled) and its noise convention (``jitter +
+    obs_stddev^2``), in O(T (p+G)^3) by Kalman filtering.
+
+    ``uniform=True`` (a promise that the grid is evenly spaced)
+    discretizes once for steps 1..T-1, the step from the t=0 prior to
+    ``t[0]`` apart; ``uniform=False`` discretizes every step (one
+    ``matrix_exp`` per distinct step). ``obs_mask``: optional {0, 1}
+    per-entry missingness in ``y``'s layout (masked entries may be NaN).
+    ``stationary_after=K``: K exact steps, then the frozen-gain tail
+    (:func:`_stationary_tail_ll`); needs ``uniform=True`` and no
+    ``obs_mask``. ``force_kernel``: ``'rbf'`` (order-``order`` SDE) or an
+    exact ``'matern12'``/``'matern32'``/``'matern52'`` prior. ``shard=``
+    is not yet ported.
+    """
+    assert_full_fp32(_WHO)
+    f_aug, p_inf, p0, _ = build_lfm_ssm(
+        params.decay, params.sensitivity, params.lengthscale, order=order,
+        force_kernel=force_kernel,
+    )
+    g = params.decay.shape[0]
+    t = torch.as_tensor(timepoints)
+    h = gene_observation_matrix(p0.shape[0] - g, g, replicates, t.dtype, t.device)
+    mean_obs = (params.basal / params.decay).repeat(replicates)
+    r_var = torch.full((replicates * g,), jitter, dtype=t.dtype, device=t.device) \
+        + params.obs_stddev**2
+    return _gridded_ssm_mll(
+        f_aug, p_inf, p0, h, mean_obs, t, y, r_var,
+        parallel=parallel, uniform=uniform, shard=shard, obs_mask=obs_mask,
+        obs_slice=(p0.shape[0] - g) if replicates == 1 else None,
+        stationary_after=stationary_after,
+    )
+
+
+def _stationary_tail_ll(a, q, h, r_var, ys_tail, m_k, p_k):
+    """Frozen-gain (steady-state) likelihood of the remaining steps of a
+    uniform-grid chain from the exact filtered state ``(m_k, P_k)``: the
+    gain, innovation factor and log-det frozen at their step-K values, each
+    step ``m_t = M m_{t-1} + K_ss y_t`` with ``M = (I - K_ss H) A``. The
+    mean recursion is the loop (one fused multiply-add a step); the
+    innovations ``y_t - H A m_{t-1}`` and their triangular solve are batched
+    after it."""
+    dtype = m_k.dtype
+    p_pred = _symmetrize(a @ p_k @ a.T + q)
+    s_mat = h @ p_pred @ h.T + torch.diag(r_var)
+    chol = _cholesky(s_mat)
+    gain = torch.cholesky_solve(h @ p_pred, chol).T
+    m_dim = m_k.shape[0]
+    mmat = (torch.eye(m_dim, dtype=dtype, device=m_k.device) - gain @ h) @ a
+    ha = h @ a
+    n_o = r_var.shape[0]
+    const = torch.sum(torch.log(torch.diagonal(chol))) + 0.5 * n_o * LOG_2PI
+    drive = ys_tail @ gain.T  # (T_tail, m): K_ss y_t
+    prev = [m_k]
+    for i in range(ys_tail.shape[0] - 1):
+        prev.append(torch.addmv(drive[i], mmat, prev[-1]))
+    resid = ys_tail - torch.stack(prev) @ ha.T  # (T_tail, n_o)
+    al = torch.linalg.solve_triangular(chol, resid.T, upper=False)
+    return -0.5 * torch.sum(al * al) - ys_tail.shape[0] * const
+
+
+def _gridded_ssm_mll(f_aug, p_inf, p0, h, mean_obs, t, y, r_var, *, parallel, uniform,
+                     shard, obs_mask=None, obs_slice=None, stationary_after=None):
+    """The gridded MLL's filter routine (see :func:`lfm_mll_ss`): center the
+    gene-major flat ``y``, discretize per the grid promise, run the
+    sequential filter."""
+    _refuse_shard(shard)
+    dtype = t.dtype
+    t_steps = t.shape[0]
+    n_o = mean_obs.shape[0]
+
+    ys = y.reshape(n_o, t_steps).T - mean_obs[None, :]
+    om = None if obs_mask is None else \
+        torch.as_tensor(obs_mask, dtype=dtype, device=t.device).reshape(n_o, t_steps).T
+
+    fil, _ = _select_schedule(parallel, t_steps)
+    if uniform and t_steps >= 2:
+        # Step 0 (prior at t=0 -> first observation) apart; steps 1..T-1
+        # share one (A, Q).
+        a0, q0 = discretize(f_aug, p_inf, t[0])
+        p_pred0 = _symmetrize(a0 @ p0 @ a0.T + q0)  # the mean stays 0 (centered)
+        if om is None:
+            h0, rv0, y0 = h, r_var, ys[0]
+            corr0 = torch.zeros((), dtype=dtype, device=t.device)
+        else:
+            h_both, rv_both, ys_both = _mask_obs(
+                h, torch.broadcast_to(r_var, (1, n_o)), ys[:1], om[:1]
+            )
+            h0, rv0, y0 = h_both[0], rv_both[0], ys_both[0]
+            corr0 = _mask_ll_correction(om[:1])[0]
+        m_f0, p_f0, ll0 = _joseph_update(
+            torch.zeros((p0.shape[0],), dtype=dtype, device=t.device), p_pred0, h0, rv0, y0
+        )
+        ll0 = ll0 + corr0
+        a, q = discretize(f_aug, p_inf, (t[-1] - t[0]) / (t_steps - 1))
+        if stationary_after is not None:
+            if om is not None:
+                raise ValueError(
+                    "stationary_after requires no shard and no obs_mask "
+                    "(the frozen gain presumes every step's update "
+                    "pattern is identical)"
+                )
+            k_ex = max(0, min(int(stationary_after), t_steps - 1))
+            ll = ll0
+            m_k, p_k = m_f0, p_f0
+            if k_ex > 0:
+                ms_k, ps_k, ll_ex = kalman_filter(
+                    a, q, h, r_var, ys[1:1 + k_ex], p_f0, m0=m_f0,
+                    **_sel_kwargs(kalman_filter, obs_slice),
+                )
+                m_k, p_k = ms_k[-1], ps_k[-1]
+                ll = ll + ll_ex
+            if k_ex < t_steps - 1:
+                rv_vec = torch.broadcast_to(torch.as_tensor(r_var, dtype=dtype), (n_o,))
+                ll = ll + _stationary_tail_ll(a, q, h, rv_vec, ys[1 + k_ex:], m_k, p_k)
+            return ll
+        _, _, ll = fil(
+            a, q, h, r_var, ys[1:], p_f0, m0=m_f0,
+            obs_mask=None if om is None else om[1:],
+            **_sel_kwargs(fil, obs_slice),
+        )
+        return ll0 + ll
+    if stationary_after is not None:
+        raise ValueError(
+            "stationary_after requires uniform=True (the frozen gain is "
+            "the shared-(A, Q) covariance fixed point)"
+        )
+    dts = torch.diff(t, prepend=torch.zeros((1,), dtype=dtype, device=t.device))
+    a, q = discretize(f_aug, p_inf, dts)
+    _, _, ll = fil(a, q, h, r_var, ys, p0, obs_mask=om, **_sel_kwargs(fil, obs_slice))
+    return ll
+
+
+# ---------------------------------------------------------------------------
+# Smoothing and prediction.
+# ---------------------------------------------------------------------------
+
+
+def _rts_rcond(dtype):
+    """Relative eigenvalue cutoff of the RTS pseudo-solve."""
+    return 1e-12 if dtype == torch.float64 else 1e-6
+
+
+def _pseudo_gain(p_f_at, p_pred, rcond):
+    """RTS gain ``(P_f A^T) P_pred^+`` (batched over leading dims) by the
+    eigendecomposition pseudo-solve with a relative cutoff: deterministic
+    directions (the t=0 gene block, dt=0 steps) get zero correction. The
+    cutoff uses the double-``where`` form so that gradients stay finite
+    through cut-off eigenvalues."""
+    w, v = torch.linalg.eigh(_symmetrize(p_pred))
+    keep = w > rcond * w[..., -1:]
+    w_inv = torch.where(keep, 1.0 / torch.where(keep, w, torch.ones_like(w)),
+                        torch.zeros_like(w))
+    return (p_f_at @ v) * w_inv[..., None, :] @ v.mT
+
+
+def _chol_gain(p_f_at, p_pred):
+    """RTS gain by a Cholesky of ``P_pred`` shifted by ``64 eps tr(P)/m``:
+    a research knob only (``rts_smoother(chol_gain_from=...)``); the JAX
+    package measured it NaN-ing smoothed means at SDE orders >= 10, where
+    ``P_pred`` holds eigenvalues below the noise floor."""
+    m_dim = p_pred.shape[-1]
+    scale = torch.diagonal(p_pred, dim1=-2, dim2=-1).sum(-1) / m_dim
+    delta = 64 * torch.finfo(p_pred.dtype).eps * scale
+    eye = torch.eye(m_dim, dtype=p_pred.dtype, device=p_pred.device)
+    shifted = _symmetrize(p_pred) + delta[..., None, None] * eye
+    return torch.cholesky_solve(p_f_at.mT, _cholesky(shifted)).mT
+
+
+def rts_smoother(a, q, ms, ps, chol_gain_from: int | None = None):
+    """Rauch-Tung-Striebel backward pass over filtered ``(ms, ps)``.
+
+    ``a``/``q``: (m, m) or (T, m, m) as in :func:`kalman_filter`. The gains
+    depend only on the filtered moments, so they are built batched before
+    the backward loop (one batched ``eigh``, :func:`_pseudo_gain`), and the
+    loop keeps the correction-form recursion
+    ``m_s[k] = m_f[k] + G_k (m_s[k+1] - A m_f[k])``,
+    ``P_s[k] = P_f[k] + G_k (P_s[k+1] - P_pred[k+1]) G_k^T``.
+    ``chol_gain_from``: shifted-Cholesky gains (:func:`_chol_gain`) from
+    that step on. Returns smoothed means (T, m) and covariances (T, m, m).
+    """
+    assert_full_fp32(_WHO)
+    t_steps = ms.shape[0]
+    rcond = _rts_rcond(ms.dtype)
+    a_n, q_n = (a, q) if a.ndim == 2 else (a[1:], q[1:])  # transitions into k + 1
+    n_gain = t_steps - 1
+    p_f, m_f = ps[:n_gain], ms[:n_gain]
+    p_f_at = p_f @ a_n.mT
+    p_preds = _symmetrize(a_n @ p_f @ a_n.mT + q_n)
+    am_f = m_f @ a_n.mT if a.ndim == 2 else (a_n @ m_f[..., None])[..., 0]
+    k_split = n_gain if chol_gain_from is None else max(0, min(int(chol_gain_from), n_gain))
+    parts = []
+    if k_split > 0:
+        parts.append(_pseudo_gain(p_f_at[:k_split], p_preds[:k_split], rcond))
+    if k_split < n_gain:
+        parts.append(_chol_gain(p_f_at[k_split:], p_preds[k_split:]))
+    gains = torch.cat(parts) if parts else p_f_at
+
+    m_next, p_next = ms[-1], ps[-1]
+    out_m, out_p = [m_next], [p_next]
+    for k in range(n_gain - 1, -1, -1):
+        gain = gains[k]
+        m_next = ms[k] + gain @ (m_next - am_f[k])
+        p_next = _symmetrize(ps[k] + gain @ (p_next - p_preds[k]) @ gain.T)
+        out_m.append(m_next)
+        out_p.append(p_next)
+    return torch.stack(out_m[::-1]), torch.stack(out_p[::-1])
+
+
+def lfm_predict_ss(params, timepoints, y, t_test, *, noise_var, replicates: int = 1,
+                   order: int = 10, obs_mask=None, parallel=None, shard=None,
+                   unique_dts=None, force_kernel: str = "rbf", interp: str = "union"):
+    """Smoothed latent-force posterior at ``t_test`` and the gene states:
+    ``(f_mean, f_var, x_mean, x_var)``, x per gene with its mean added back.
+    Runs under ``torch.no_grad``.
+
+    ``interp='union'``: filter and smoother on the union of the train and
+    test grids, updates masked to train steps. ``interp='bridge'``:
+    smoother on the train grid only, each test time conditioned on its
+    bracketing smoothed states (:func:`_bridge_smooth`). ``noise_var``:
+    scalar, (G*R,) or (T_train, G*R).
+
+    Contracts:
+
+    - ``unique_dts`` is a checked bound (``ValueError`` when exceeded) on
+      the distinct step sizes, counting the step from 0 to the first time:
+      for ``'union'`` those of the sorted union grid (a duplicate time
+      gives a 0 step), for ``'bridge'`` those of the train grid.
+    - Order of the returned points: ``'union'`` returns them sorted by
+      time (stably); ``'bridge'`` in ``t_test``'s own order.
+    - Negative test times: ``'bridge'`` clamps them to the t=0 node;
+      ``'union'`` raises ``ValueError`` (the model starts at t=0; the JAX
+      package builds negative-step transitions there).
+    """
+    assert_full_fp32(_WHO)
+    _refuse_shard(shard)
+    with torch.no_grad():
+        t_train = torch.as_tensor(timepoints)
+        t_test = torch.as_tensor(t_test, dtype=t_train.dtype, device=t_train.device)
+        g = params.decay.shape[0]
+        f_aug, p_inf, p0, h_force = build_lfm_ssm(
+            params.decay, params.sensitivity, params.lengthscale, order=order,
+            force_kernel=force_kernel,
+        )
+        p = p0.shape[0] - g
+        h = gene_observation_matrix(p, g, replicates, t_train.dtype, t_train.device)
+        mean = params.basal / params.decay
+        m_t, p_t = _pick_smooth(interp)(
+            f_aug, p_inf, p0, h, t_train, t_test, y, mean.repeat(replicates), noise_var,
+            obs_mask=obs_mask, parallel=parallel, unique_dts=unique_dts,
+            obs_slice=p if replicates == 1 else None,
+        )
+        f_mean = m_t @ h_force
+        f_var = torch.einsum("i,tij,j->t", h_force, p_t, h_force)
+        x_mean = m_t[:, p:] + mean[None, :]
+        x_var = torch.diagonal(p_t, dim1=1, dim2=2)[:, p:]
+    return f_mean, f_var, x_mean, x_var
+
+
+def _train_inputs(t_train, y, mean_obs, noise_var, obs_mask):
+    """Centered (T, n_o) observations, (T, n_o) noise variances and the
+    (T, n_o) entry mask (or None) from the block-major flat inputs."""
+    dtype, dev = t_train.dtype, t_train.device
+    n_o, t_steps = mean_obs.shape[0], t_train.shape[0]
+    ys = y.reshape(n_o, t_steps).T - mean_obs[None, :]
+    rv = torch.broadcast_to(torch.as_tensor(noise_var, dtype=dtype, device=dev), (t_steps, n_o))
+    om = None if obs_mask is None else \
+        torch.as_tensor(obs_mask, dtype=dtype, device=dev).reshape(n_o, t_steps).T
+    return ys, rv, om
+
+
+def _union_grid_smooth(f_aug, p_inf, p0, h, t_train, t_test, y, mean_obs, noise_var,
+                       obs_mask=None, parallel=None, unique_dts=None, obs_slice=None):
+    """Filter + RTS smoother on the union grid of train and test times,
+    updates masked to the train steps. The sort and the train/test
+    positions are computed on the host from the concrete grids. Returns the
+    smoothed state ``(m_t, p_t)`` at the test times in time-sorted order
+    (means centered)."""
+    dtype, dev = t_train.dtype, t_train.device
+    n_o = mean_obs.shape[0]
+    tt_host = _host(t_test)
+    if np.any(tt_host < 0):
+        raise ValueError(
+            "interp='union' needs t_test >= 0 (the model starts at t=0); "
+            "interp='bridge' clamps negative times to the t=0 node"
+        )
+    n_train = t_train.shape[0]
+    order_idx = np.argsort(np.concatenate([_host(t_train), tt_host]), kind="stable")
+    is_train = order_idx < n_train
+    train_pos = torch.as_tensor(np.nonzero(is_train)[0], device=dev)
+    test_pos = torch.as_tensor(np.nonzero(~is_train)[0], device=dev)
+    t_sorted = torch.cat([t_train, t_test])[torch.as_tensor(order_idx, device=dev)]
+    n_all = t_sorted.shape[0]
+    dts = torch.diff(t_sorted, prepend=torch.zeros((1,), dtype=dtype, device=dev))
+    a, q = discretize(f_aug, p_inf, dts, max_unique=unique_dts)
+
+    ys_train, rv_train, om_train = _train_inputs(t_train, y, mean_obs, noise_var, obs_mask)
+    ys = torch.zeros((n_all, n_o), dtype=dtype, device=dev)
+    ys[train_pos] = ys_train
+    # Masked steps never use their noise row; 1.0 keeps the Cholesky happy.
+    rv_all = torch.ones((n_all, n_o), dtype=dtype, device=dev)
+    rv_all[train_pos] = rv_train
+    om_all = None
+    if om_train is not None:
+        om_all = torch.ones((n_all, n_o), dtype=dtype, device=dev)
+        om_all[train_pos] = om_train
+
+    fil, smo = _select_schedule(parallel, n_all)
+    ms, ps, _ = fil(a, q, h, rv_all, ys, p0, mask=is_train.astype(np.float64),
+                    obs_mask=om_all, **_sel_kwargs(fil, obs_slice))
+    ms_s, ps_s = smo(a, q, ms, ps)
+    return ms_s[test_pos], ps_s[test_pos]
+
+
+def _bridge_smooth(f_aug, p_inf, p0, h, t_train, t_test, y, mean_obs, noise_var,
+                   obs_mask=None, parallel=None, unique_dts=None, obs_slice=None):
+    """Bridge interpolation: filter + RTS smoother on the TRAIN grid, then
+    each test time conditioned on its two bracketing smoothed states
+    through the discretized prior's Gaussian bridge (exact by the Markov
+    property; the JAX package's derivation in
+    ``dis_project_tpu/ops/statespace.py:_bridge_smooth``)::
+
+        x* | x_L, x_R ~ N(W_a x_L + W_b x_R, Lambda),
+        W_b = Q_1 A_2^T S^+,  W_a = A_1 - W_b A_2 A_1,
+        Lambda = Q_1 - W_b A_2 Q_1,   S = A_2 Q_1 A_2^T + Q_2,
+
+    with the pairwise smoothed cross-covariance ``G_k Sigma_R``. Times past
+    the last train node extrapolate from the terminal smoothed state; times
+    in ``[0, t_train[0])`` bridge against a virtual t=0 node; negative times
+    clamp to it. The per-test work is batched over the test points; the
+    brackets are found on the host. Returns the moments in ``t_test``'s
+    order (means centered)."""
+    dtype, dev = t_train.dtype, t_train.device
+    t_steps = t_train.shape[0]
+    zero = torch.zeros((1,), dtype=dtype, device=dev)
+
+    dts = torch.diff(t_train, prepend=zero)
+    a, q = discretize(f_aug, p_inf, dts, max_unique=unique_dts)
+    ys, rv, om = _train_inputs(t_train, y, mean_obs, noise_var, obs_mask)
+    fil, smo = _select_schedule(parallel, t_steps)
+    ms, ps, _ = fil(a, q, h, rv, ys, p0, obs_mask=om, **_sel_kwargs(fil, obs_slice))
+    ms_s, ps_s = smo(a, q, ms, ps)
+
+    rcond = _rts_rcond(dtype)
+    # Virtual t=0 node: the chain's prior (m0 = 0, p0), smoothed backward one step.
+    a0, q0 = a[0], q[0]
+    p_pred0 = _symmetrize(a0 @ p0 @ a0.T + q0)
+    g0 = _pseudo_gain(p0 @ a0.T, p_pred0, rcond)
+    m_node = torch.cat([(g0 @ ms_s[0])[None], ms_s])
+    s_node = torch.cat([_symmetrize(p0 + g0 @ (ps_s[0] - p_pred0) @ g0.T)[None], ps_s])
+    pf_node = torch.cat([p0[None], ps])
+    t_node = torch.cat([zero, t_train])
+
+    k_host = np.clip(np.searchsorted(_host(t_node), _host(t_test), side="right") - 1,
+                     0, t_steps - 1)
+    k = torch.as_tensor(k_host, device=dev)
+    dt1 = torch.clamp(t_test - t_node[k], min=0.0)
+    dt2 = torch.clamp(t_node[k + 1] - t_test, min=0.0)
+    a1, q1 = discretize(f_aug, p_inf, dt1)
+    a2, q2 = discretize(f_aug, p_inf, dt2)
+    m_l, m_r = m_node[k], m_node[k + 1]
+    s_l, s_r = s_node[k], s_node[k + 1]
+    pf_k = pf_node[k]
+    # Pairwise smoothed joint over the bracket; the full-step transition is
+    # the composite of the two half-steps.
+    a12 = a2 @ a1
+    q12 = _symmetrize(a2 @ q1 @ a2.mT + q2)
+    p_pred = _symmetrize(a12 @ pf_k @ a12.mT + q12)
+    g_k = _pseudo_gain(pf_k @ a12.mT, p_pred, rcond)
+    c_lr = g_k @ s_r  # Cov(x_L, x_R | Y)
+    w_b = _pseudo_gain(q1 @ a2.mT, q12, rcond)
+    w_b_a2 = w_b @ a2
+    w_a = a1 - w_b_a2 @ a1
+    lam = q1 - w_b_a2 @ q1
+    cross = w_a @ c_lr @ w_b.mT
+    m_in = (w_a @ m_l[..., None] + w_b @ m_r[..., None])[..., 0]
+    p_in = _symmetrize(lam + w_a @ s_l @ w_a.mT + w_b @ s_r @ w_b.mT + cross + cross.mT)
+    # One-sided extrapolation past the terminal node.
+    dte = torch.clamp(t_test - t_node[-1], min=0.0)
+    ae, qe = discretize(f_aug, p_inf, dte)
+    m_ex = ae @ m_node[-1]
+    p_ex = _symmetrize(ae @ s_node[-1] @ ae.mT + qe)
+    is_ex = (t_test > t_node[-1])[:, None]
+    return torch.where(is_ex, m_ex, m_in), torch.where(is_ex[..., None], p_ex, p_in)
+
+
+def _pick_smooth(interp):
+    if interp == "union":
+        return _union_grid_smooth
+    if interp == "bridge":
+        return _bridge_smooth
+    raise ValueError(f"interp must be 'union' or 'bridge', got {interp!r}")
