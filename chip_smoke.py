@@ -134,7 +134,18 @@ it on a parent tree and on this one, in turns, to compare them. Phases (each rai
    the force's correlation with the generating one); ``[ss scale]`` (one
    value and gradient at T = 2000, N = 1e5, with and without
    ``stationary_after=256``). ``[engines]`` sets the ss step beside cg and
-   xla.
+   xla. Then (:func:`ss_engine_phases`, their total wall seconds on a line
+   of its own): ``[ss schedules]`` and ``[ss schedules scale]`` (each
+   ``parallel=`` schedule of ``SS_SCHEDULES`` at T = 200 and 2000: step
+   ms with spreads, levels, host us per level, device busy share, syncs;
+   float64 and float32 agreement with the sequential filter), ``[ss
+   predict schedules]`` (union and bridge under each smoother schedule
+   against the sequential one, float64), ``[ss auto]`` (what
+   ``parallel=None`` picks on the card and the measurement beside it),
+   ``[ffbs]`` (64 joint posterior and prior draws against their moments),
+   ``[streaming]`` (the series one arrival at a time: the ll against the
+   batch MLL, us per arrival, no host sync per arrival) and ``[dense
+   metrics]`` (``--metrics-path`` on each dense engine).
 7. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
@@ -772,9 +783,11 @@ def dense_ss(drive, smi):
     corr_s = _corr(dense.result.params.sensitivity, s_true)
     print(f"[dense ss] N={G * T} f32 losses {hist}; recovery corr(decay) {corr_d:.4f} "
           f"corr(sensitivity) {corr_s:.4f} ({smi})")
+    pick = _schedule_name(ss._select_schedule(None, T, dev)[0])
     print(f"[dense ss] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) {median:.3f}, "
-          f"spread (interquartile) {q3 - q1:.3f}; peak memory {peak_gib:.3f} GiB (above the "
-          f"{held['bytes'] / 2**30:.3f} GiB held before the run) ({smi})")
+          f"spread (interquartile) {q3 - q1:.3f}; the route's schedule (parallel=None) {pick}; "
+          f"peak memory {peak_gib:.3f} GiB (above the {held['bytes'] / 2**30:.3f} GiB held "
+          f"before the run) ({smi})")
     print(f"[dense ss] host us per filter step (enqueue / T = {T}): loss "
           f"{[round(u, 1) for u in fwd_us]}, loss and gradient {[round(u, 1) for u in vg_us]}; "
           f"host share of the step (median) "
@@ -852,8 +865,8 @@ def dense_ss(drive, smi):
     # The tail's error against the exact filter, float64 at the init point.
     p64 = simm.constrain(raw64)
     y64, t64 = y32.double(), t32.double()
-    with torch.no_grad():
-        exact64 = float(ss.lfm_mll_ss(p64, t64, y64, jitter=cfg.EXACT_JITTER))
+    with torch.no_grad():  # the sequential filter: the tail's exact part runs it
+        exact64 = float(ss.lfm_mll_ss(p64, t64, y64, jitter=cfg.EXACT_JITTER, parallel=False))
         tail_err = {k: abs(float(ss.lfm_mll_ss(p64, t64, y64, jitter=cfg.EXACT_JITTER,
                                                stationary_after=k)) - exact64)
                     for k in (16, 32, 64, T - 1)}
@@ -913,7 +926,383 @@ def dense_ss(drive, smi):
               f"gradient {wall:.3f} ms ({1e3 * wall / T_big:.1f} us a filter step), loss "
               f"{float(lv)!r}, host syncs {n_sync} ({smi})")
         require(math.isfinite(float(lv)), f"ss scale loss not finite (stationary_after={k})")
-    return dict(median=median, spread=q3 - q1, peak_gib=peak_gib, corr=(corr_d, corr_s))
+    return dict(median=median, spread=q3 - q1, peak_gib=peak_gib, corr=(corr_d, corr_s),
+                dense=dense)
+
+
+# The schedules of parallel= that the ss phases time: the sequential pair,
+# the associative scan, the blocked pair at its default block length and at
+# one other.
+SS_SCHEDULES = {"sequential": False, "associative": True, "blocked": "blocked", "blocked L=8": 8}
+
+
+def _schedule_name(fil):
+    """The name of a schedule's filter (a function or a ``partial`` of one)."""
+    return getattr(fil, "__name__", None) or fil.func.__name__
+
+
+def _median_spread(values):
+    q1, _, q3 = statistics.quantiles(values, n=4) if len(values) > 1 else (values[0],) * 3
+    return statistics.median(values), q3 - q1
+
+
+def _levels(fn):
+    """``(fn(), n)``: n calls of a schedule's per-level routine during
+    ``fn()``, i.e. a sequential filter step's update, a semigroup combine
+    or a state application (each wrapped once in ``ops.statespace``)."""
+    from dis_project_tpu_torch.ops import statespace as ss
+
+    names = ("_joseph_update", "_joseph_update_sel", "_combine", "_apply_state")
+    originals = {name: getattr(ss, name) for name in names}
+    calls = [0]
+
+    def counted(f):
+        def g(*args, **kw):
+            calls[0] += 1
+            return f(*args, **kw)
+        return g
+
+    for name, f in originals.items():
+        setattr(ss, name, counted(f))
+    try:
+        out = fn()
+    finally:
+        for name, f in originals.items():
+            setattr(ss, name, f)
+    return out, calls[0]
+
+
+def _schedule_times(loss_fn, raw, reps):
+    """One schedule's step times (host clock, each ending in a sync):
+    ``reps`` losses alone and ``reps`` losses and gradients; their medians
+    of steps 2+ with interquartile spreads, the host enqueue time of one
+    loss and of one loss and gradient, the levels of one loss, the device's
+    busy ms in one loss and gradient and its host syncs."""
+    import torch
+
+    from dis_project_tpu_torch.training import generic
+
+    out = {}
+    for kind, fn in (("loss", lambda: loss_fn(raw)),
+                     ("loss_grad", lambda: generic.value_and_grad(loss_fn, raw))):
+        walls, hosts = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            hosts.append(1e3 * (t1 - t0))
+        out[kind] = _median_spread(walls[1:])
+        out[kind + "_host"] = statistics.median(hosts[1:])
+    with torch.no_grad():
+        _, out["levels"] = _levels(lambda: loss_fn(raw))
+    out["busy"] = device_busy_ms(lambda: generic.value_and_grad(loss_fn, raw))
+    _, out["syncs"] = count_syncs(lambda: generic.value_and_grad(loss_fn, raw))
+    return out
+
+
+def _print_schedule_times(tag, T, name, r, smi):
+    (lm, ls), (gm, gs) = r["loss"], r["loss_grad"]
+    busy = "not measured" if r["busy"] is None else f"{r['busy']:.3f} ms ({r['busy'] / gm:.3f})"
+    print(f"[{tag}] T={T} {name}: loss {lm:.3f} ms (spread {ls:.3f}), loss and gradient {gm:.3f} "
+          f"ms (spread {gs:.3f}); {r['levels']} levels, host us per level {1e3 * r['loss_host'] / r['levels']:.1f} "
+          f"(loss) / {1e3 * r['loss_grad_host'] / r['levels']:.1f} (loss and gradient); device busy "
+          f"in one loss and gradient {busy}; host syncs {r['syncs']} ({smi})")
+
+
+def ss_schedules(dense, smi):
+    """``[ss schedules]``: each schedule of ``SS_SCHEDULES`` at the dense10k
+    ss shape (50 x 200, order 10, m = 60) on the route's data at the init
+    point, float32: its step times (loss alone and loss and gradient, median
+    and interquartile spread), levels, host us per level, device
+    busy share and host syncs (steps 2-6 of 6 sequential, 2-9 of 9 others);
+    in float64 each schedule's MLL within 1e-9 x
+    max(1, |MLL|) of the sequential one and its raw gradient within 1e-8 of
+    max|g|; in float32 each schedule's loss within twice the sequential
+    float32 loss's distance from the float64 one. ``[ss schedules scale]``:
+    the loss and gradient of each at T = 2000 (N = 1e5) on seeded data.
+    Returns the times by T and schedule."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import generic
+
+    dev, f32, f64 = torch.device("cuda"), torch.float32, torch.float64
+    G, T = DENSE_GENES, DENSE_TIMEPOINTS
+    y32, t32 = dense.y, dense.data.timepoints
+    raw32 = simm.unconstrain(simm.init_params(G, dtype=f32, device=dev))
+    raw64 = type(raw32)(*(r.double() for r in raw32))
+
+    def loss_fn(y, t, parallel):
+        return lambda r: -ss.lfm_mll_ss(simm.constrain(r), t, y, jitter=cfg.EXACT_JITTER,
+                                        parallel=parallel)
+
+    times = {T: {}}
+    for name, parallel in SS_SCHEDULES.items():
+        times[T][name] = r = _schedule_times(loss_fn(y32, t32, parallel), raw32,
+                                             reps=6 if name == "sequential" else 9)
+        _print_schedule_times("ss schedules", T, name, r, smi)
+
+    ref = {}
+    for dt in (f64, f32):
+        raw = raw64 if dt == f64 else raw32
+        for name, parallel in SS_SCHEDULES.items():
+            ref[dt, name] = generic.value_and_grad(loss_fn(y32.to(dt), t32.to(dt), parallel), raw)
+    l64, g64 = ref[f64, "sequential"]
+    g64 = _flat_grad(g64)
+    d32_seq = abs(float(ref[f32, "sequential"][0]) - float(l64))
+    for name in SS_SCHEDULES:
+        lv, gv = ref[f64, name]
+        d_mll = abs(float(lv) - float(l64))
+        d_grad = float((_flat_grad(gv) - g64).abs().max() / g64.abs().max())
+        d32 = abs(float(ref[f32, name][0]) - float(l64))
+        cos32 = _cosine(_flat_grad(ref[f32, name][1]), g64)
+        print(f"[ss schedules] {name}: f64 |MLL - sequential| {d_mll:.3e} (limit "
+              f"{1e-9 * max(1.0, abs(float(l64))):.3e}), raw gradient max |diff| / max|g| "
+              f"{d_grad:.3e} (limit 1e-8); f32 |loss - f64 sequential| {d32:.3e} (limit 2 x the "
+              f"sequential's {d32_seq:.3e}), f32 gradient cosine to f64 {cos32:.6f} ({smi})")
+        require(d_mll <= 1e-9 * max(1.0, abs(float(l64))), f"ss schedule {name}: f64 MLL {d_mll}")
+        require(d_grad <= 1e-8, f"ss schedule {name}: f64 gradient {d_grad}")
+        require(d32 <= 2.0 * d32_seq, f"ss schedule {name}: f32 loss {d32} vs {d32_seq}")
+
+    T_big = 2000
+    gen = torch.Generator().manual_seed(7)
+    t_big = torch.linspace(0.0, 12.0 * T_big / T, T_big, dtype=f32, device=dev)
+    y_big = (0.125 + torch.randn(G * T_big, generator=gen)).to(f32).to(dev)
+    times[T_big] = {}
+    for name, parallel in SS_SCHEDULES.items():
+        fn = loss_fn(y_big, t_big, parallel)
+        walls = []
+        for _ in range(4 if name == "sequential" else 5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lv, _ = generic.value_and_grad(fn, raw32)
+            host = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        with torch.no_grad():
+            _, levels = _levels(lambda: fn(raw32))
+        _, syncs = count_syncs(lambda: generic.value_and_grad(fn, raw32))
+        med, spread = _median_spread(walls[1:])
+        times[T_big][name] = {"loss_grad": (med, spread)}
+        print(f"[ss schedules scale] T={T_big} (N={G * T_big}) {name}: loss and gradient {med:.3f} "
+              f"ms (spread {spread:.3f}, steps {[round(w, 1) for w in walls]}); {levels} levels, "
+              f"host us per level {1e3 * host / levels:.1f}; loss {float(lv)!r}; host syncs "
+              f"{syncs} ({smi})")
+        require(math.isfinite(float(lv)), f"ss schedules scale {name}: loss not finite")
+    return times
+
+
+def ss_predict_schedules(dense, smi):
+    """``[ss predict schedules]``: ``lfm_predict_ss`` union and bridge under
+    each smoother schedule at the route's trained parameters on its 200-point
+    grid, against the sequential smoother in float64 at ``[ss predict]``'s
+    floor (1e-5 means, 1e-6 variances); each one's float32 time."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch.ops import statespace as ss
+
+    f32, f64 = torch.float32, torch.float64
+    G, T = DENSE_GENES, DENSE_TIMEPOINTS
+    params = dense.result.params
+    nv = dense.var.reshape(G, T).T + cfg.EXACT_JITTER
+    t, y, grid = dense.data.timepoints, dense.y, dense.lf_grid
+    for interp in ("union", "bridge"):
+        def call(dt, parallel):
+            pp = type(params)(*(x.to(dt) for x in params))
+            return ss.lfm_predict_ss(pp, t.to(dt), y.to(dt), grid.to(dt), noise_var=nv.to(dt),
+                                     interp=interp, parallel=parallel)
+        seq = call(f64, False)
+        for name, parallel in SS_SCHEDULES.items():
+            got = call(f64, parallel)
+            diffs = [float((a - b).abs().max()) for a, b in zip(got[:2], seq[:2])]
+            ms = cuda_ms(lambda: call(f32, parallel), reps=3, warmup=1)
+            print(f"[ss predict schedules] {interp} {name}: f64 max |diff| to sequential (f_mean, "
+                  f"f_var) {diffs} (limits (1e-05, 1e-06)); f32 {ms:.3f} ms ({smi})")
+            require(diffs[0] <= 1e-5 and diffs[1] <= 1e-6,
+                    f"ss predict {interp} {name} vs sequential: {diffs}")
+
+
+def ss_auto(times, smi):
+    """``[ss auto]``: what ``parallel=None`` resolves to on the card at
+    T = 200 and 2000, beside the blocked and sequential loss-and-gradient
+    medians and whether blocked is faster by more than the larger spread."""
+    from dis_project_tpu_torch.ops import statespace as ss
+
+    for T, by in times.items():
+        (s_med, s_sp), (b_med, b_sp) = by["sequential"]["loss_grad"], by["blocked"]["loss_grad"]
+        pick = _schedule_name(ss._select_schedule(None, T, "cuda")[0])
+        print(f"[ss auto] T={T}: parallel=None picks {pick} (_AUTO_BLOCKED_MIN_T = "
+              f"{ss._AUTO_BLOCKED_MIN_T}); loss and gradient sequential {s_med:.3f} ms (spread "
+              f"{s_sp:.3f}), blocked {b_med:.3f} ms (spread {b_sp:.3f}); blocked faster by more "
+              f"than the larger spread: {s_med - b_med > max(s_sp, b_sp)} ({smi})")
+
+
+def ffbs(dense, smi):
+    """``[ffbs]``, float64 at the route's trained parameters on the dense10k
+    grid (200 train times, the 200-point force grid): 64 joint posterior
+    draws (``posterior_sample_ss``) whose marginal mean and variance sit
+    within 5 Monte-Carlo standard errors of ``lfm_predict_ss``'s at every
+    point; ``sample_trajectory_ss``'s 64 prior draws against the prior
+    moments (a filter with every update masked); the ms of S = 1 and 64."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch.ops import statespace as ss
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    G, T, S = DENSE_GENES, DENSE_TIMEPOINTS, 64
+    params = type(dense.result.params)(*(x.double() for x in dense.result.params))
+    nv = (dense.var.reshape(G, T).T + cfg.EXACT_JITTER).double()
+    t, y, grid = (x.double() for x in (dense.data.timepoints, dense.y, dense.lf_grid))
+    fm, fv, _, _ = ss.lfm_predict_ss(params, t, y, grid, noise_var=nv)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    draws = ss.posterior_sample_ss(params, t, y, grid, gen, noise_var=nv, num_samples=S)
+    z_mean = float(((draws.mean(0) - fm).abs() / (fv / S).sqrt()).max())
+    z_var = float(((draws.var(0) - fv).abs() / (fv * math.sqrt(2.0 / (S - 1)))).max())
+    ms = {s: cuda_ms(lambda s=s: ss.posterior_sample_ss(params, t, y, grid, gen, noise_var=nv,
+                                                        num_samples=s), reps=3, warmup=1)
+          for s in (1, S)}
+    print(f"[ffbs] posterior_sample_ss f64, {S} draws on {grid.shape[0]} points: max z of the "
+          f"mean {z_mean:.3f}, of the variance {z_var:.3f} (limit 5); ms S=1 {ms[1]:.3f}, "
+          f"S={S} {ms[S]:.3f} ({smi})")
+    require(draws.shape == (S, grid.shape[0]) and bool(torch.isfinite(draws).all()),
+            "ffbs draws not finite")
+    require(z_mean <= 5 and z_var <= 5, f"ffbs moments: z {z_mean}, {z_var}")
+
+    f, x = ss.sample_trajectory_ss(params, t, gen, num_samples=S)
+    f_aug, p_inf, p0, h_force = ss.build_lfm_ssm(params.decay, params.sensitivity,
+                                                 params.lengthscale)
+    a, q = ss.discretize(f_aug, p_inf, torch.diff(t, prepend=torch.zeros(1, dtype=f64,
+                                                                        device=dev)))
+    h = ss.gene_observation_matrix(p0.shape[0] - G, G, 1, f64, dev)
+    _, ps, _ = ss.kalman_filter(a, q, h, 1.0, torch.zeros((T, G), dtype=f64, device=dev), p0,
+                                mask=torch.zeros(T))
+    f_var = torch.einsum("i,tij,j->t", h_force, ps, h_force)
+    zf = float((f.mean(0).abs() / (f_var / S).sqrt()).max())
+    zv = float(((f.var(0) - f_var).abs() / (f_var * math.sqrt(2.0 / (S - 1)))).max())
+    ms_p = {s: cuda_ms(lambda s=s: ss.sample_trajectory_ss(params, t, gen, num_samples=s),
+                       reps=3, warmup=1) for s in (1, S)}
+    print(f"[ffbs] sample_trajectory_ss f64, {S} prior draws on {T} points: max z of the force "
+          f"mean {zf:.3f}, of its variance {zv:.3f} (limit 5); x {tuple(x.shape)}; ms S=1 "
+          f"{ms_p[1]:.3f}, S={S} {ms_p[S]:.3f} ({smi})")
+    require(zf <= 5 and zv <= 5, f"prior draws' moments: z {zf}, {zv}")
+
+
+def streaming(dense, smi):
+    """``[streaming]``, float64 at the init point: the dense10k series
+    absorbed one arrival at a time (``streaming_update``, inputs already on
+    the card), its final ll within 1e-9 relative of the batch ``lfm_mll_ss``
+    over the same steps (``uniform=False``); then 64 exact warm-up arrivals
+    and the rest through ``streaming_update_frozen``, the ll within 1e-6
+    relative of the batch ``stationary_after=64`` MLL (the JAX package's
+    limit for this check). Host us and wall us per arrival of each, the
+    host us of the gap's sync-free discretization alone, and the host syncs
+    per arrival (the arrivals' loops only; they must be 0)."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import statespace as ss
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    G, T, K = DENSE_GENES, DENSE_TIMEPOINTS, 64
+    params = simm.init_params(G, dtype=f64, device=dev)
+    t, y = dense.data.timepoints.double(), dense.y.double()
+    ys = y.reshape(G, T).T.contiguous()
+    rv = (cfg.EXACT_JITTER + params.obs_stddev**2).reshape(())
+    # The batch filter over the same steps (the stream's gaps, each t_i - t_{i-1});
+    # the frozen tail at the uniform grid's step, as the batch tail takes it.
+    batch = float(ss.lfm_mll_ss(params, t, y, jitter=cfg.EXACT_JITTER, uniform=False))
+    batch_k = float(ss.lfm_mll_ss(params, t, y, jitter=cfg.EXACT_JITTER, stationary_after=K))
+    dt = float((t[-1] - t[0]) / (T - 1))
+    carry0, aux = ss.streaming_init(params)
+
+    def exact(carry, lo, hi):
+        for i in range(lo, hi):
+            carry = ss.streaming_update(carry, aux, t[i], ys[i], rv)
+        return carry
+
+    warm = exact(carry0, 0, K + 1)
+    pack = ss.streaming_freeze(warm, aux, dt, rv)
+
+    def frozen(carry):
+        for i in range(K + 1, T):
+            carry = ss.streaming_update_frozen(carry, pack, ys[i])
+        return carry
+
+    def gaps():
+        for i in range(1, T):
+            ss._discretize_device(aux[0], aux[1], t[i] - t[i - 1])
+
+    out = {}
+    for name, fn, n in (("streaming_update", lambda: exact(carry0, 0, T), T),
+                        ("streaming_update_frozen", lambda: frozen(warm), T - K - 1),
+                        ("the gap's sync-free discretization alone", gaps, T - 1)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _, syncs = count_syncs(fn)
+        out[name] = (None if res is None else float(res.ll), 1e6 * host / n, 1e6 * wall / n,
+                     syncs / n)
+        print(f"[streaming] {name}: {n} arrivals of {G} genes, f64: host us per arrival "
+              f"{1e6 * host / n:.1f}, wall {1e6 * wall / n:.1f}; host syncs per arrival "
+              f"{syncs / n} ({smi})")
+    ll, llf = out["streaming_update"][0], out["streaming_update_frozen"][0]
+    rel, rel_k = abs(ll - batch) / abs(batch), abs(llf - batch_k) / abs(batch_k)
+    print(f"[streaming] ll {ll!r} vs batch lfm_mll_ss {batch!r}: rel {rel:.3e} (limit 1e-9); "
+          f"{K} exact then frozen {llf!r} vs batch stationary_after={K} {batch_k!r}: rel "
+          f"{rel_k:.3e} (limit 1e-6) ({smi})")
+    require(rel <= 1e-9, f"streaming ll vs batch: {rel}")
+    require(rel_k <= 1e-6, f"frozen streaming ll vs batch stationary tail: {rel_k}")
+    require(all(v[3] == 0 for v in out.values()), f"streaming made host syncs: {out}")
+
+
+def dense_metrics(drive, smi):
+    """``[dense metrics]``: two-step ``main.run_dense`` runs at dense10k with
+    ``--metrics-path`` on the cholesky, cg and ss engines (float32): each
+    file one ``{"step", "loss"}`` line per step, equal to the run's loss
+    history."""
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
+    for engine in ("cholesky", "cg", "ss"):
+        path = os.path.join(tmp, f"{engine}.jsonl")
+        run = drive(f"dense metrics {engine}", lambda: port_main.run_dense(cfg.RunConfig(
+            preset="dense10k", synth_genes=DENSE_GENES, synth_timepoints=DENSE_TIMEPOINTS,
+            num_iters=2, x64=False, device="cuda", mll_engine=engine, metrics_path=path)), ())
+        with open(path) as f:
+            lines = [json.loads(line) for line in f]
+        want = [{"step": i, "loss": v} for i, v in enumerate(run.result.history.tolist())]
+        print(f"[dense metrics] {engine}: {lines} ({smi})")
+        require(lines == want and len(lines) == 2, f"dense metrics {engine}: {lines} vs {want}")
+    shutil.rmtree(tmp)
+
+
+def ss_engine_phases(drive, dense, smi):
+    """The phases of the ss engine's schedules, samplers and streaming API,
+    and the dense metrics files; prints their total wall seconds."""
+    t0 = time.perf_counter()
+    times = ss_schedules(dense, smi)
+    ss_predict_schedules(dense, smi)
+    ss_auto(times, smi)
+    ffbs(dense, smi)
+    streaming(dense, smi)
+    dense_metrics(drive, smi)
+    print(f"[ss engine phases] schedules, predict schedules, auto, ffbs, streaming and dense "
+          f"metrics took {time.perf_counter() - t0:.1f} s")
+    return times
 
 
 def main():
@@ -1997,6 +2386,7 @@ def main():
           f"{ssr['spread']:.3f}, {ssr['peak_gib']:.3f} GiB, recovery corr {ssr['corr'][0]:.4f}/"
           f"{ssr['corr'][1]:.4f}), cg {cg['median']:.3f} ms, xla {steady_xla:.3f} ms; ss / xla "
           f"{ssr['median'] / steady_xla:.3f} ({smi})")
+    ss_engine_phases(drive, ssr["dense"], smi)
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():

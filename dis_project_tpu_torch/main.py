@@ -127,6 +127,14 @@ def write_metrics(path: str, result) -> None:
             f.write(json.dumps({"step": i, "loss": loss, "grad_norm": gn}) + "\n")
 
 
+def write_dense_metrics(path: str, history) -> None:
+    """The dense route's per-step ``{step, loss}`` records, one JSON line
+    each, on every engine (the JAX package's dense format: no grad_norm)."""
+    with open(path, "w") as f:
+        for i, loss in enumerate(history.tolist()):
+            f.write(json.dumps({"step": i, "loss": loss}) + "\n")
+
+
 def fit_and_predict(config: cfg.RunConfig) -> CanonicalRun:
     """The canonical route's device work: data, resume, the fit, the
     metrics JSONL and the checkpoint, and both posteriors."""
@@ -494,6 +502,8 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     )
     print(f"Trained {config.num_iters} iters in {wall:.2f}s "
           f"(final loss {final:.4f}, N={G * T})")
+    if config.metrics_path:
+        write_dense_metrics(config.metrics_path, res.history)
 
     b, s, d = data.params_ground_truth()
     trained_d = res.params.decay.detach().cpu().numpy()

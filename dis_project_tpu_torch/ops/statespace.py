@@ -13,21 +13,35 @@ filter: O(T (p+G)^3) work instead of O((GT)^3).
   numpy/scipy, float64, cached per order and kind.
 - :func:`build_lfm_ssm` and :func:`discretize`: differentiable in decay,
   sensitivity and lengthscale; ``discretize`` buckets a vector of steps on
-  the host (one ``matrix_exp`` per distinct step).
+  the host (one ``matrix_exp`` per distinct step) unless the steps carry
+  a gradient, which takes one batched ``matrix_exp`` per step (JAX's
+  traced branch).
 - :func:`kalman_filter`: a Python loop over the steps with the JAX scan's
   per-step algebra (Joseph-form updates, one Cholesky of the innovation
   covariance for gain and log-density). Nothing in the loop syncs with the
   host: the Cholesky is ``cholesky_ex`` with a non-PD innovation
   covariance turned into a NaN factor on the device (the JAX semantics the
   finite guards rely on), and a ``mask`` is read on the host once.
+- :func:`parallel_filter` and :func:`blocked_filter`: the filtering
+  semigroup (:func:`_combine`, one shared LU per combine) under an eager
+  odd/even associative scan (:func:`_associative_scan`, ~2 log2(T)
+  batched combines) or under the blocked schedule (~L + B levels);
+  :func:`parallel_rts_smoother` and :func:`blocked_rts_smoother` their
+  smoothing duals. ``parallel=`` selects the pair (:func:`_select_schedule`).
 - :func:`lfm_mll_ss`: the MLL (uniform grids share one (A, Q); optional
   per-entry ``obs_mask`` and the frozen-gain ``stationary_after`` tail).
 - :func:`rts_smoother` and :func:`lfm_predict_ss`: smoothed posteriors on
   the union grid or by bridge interpolation, under ``torch.no_grad``.
+- :func:`posterior_sample_ss` (FFBS) and :func:`sample_trajectory_ss`:
+  joint posterior and prior draws from a ``torch.Generator``.
+- The streaming API (:class:`FilterCarry`, :func:`streaming_init`,
+  :func:`streaming_update`, :func:`streaming_freeze`,
+  :func:`streaming_update_frozen`, :func:`streaming_predict`): one update a
+  arrival, no host sync in it (:func:`_expm_device` discretizes the gap on
+  the device).
 
-Only the sequential schedule is ported: ``parallel=None``/``False`` give
-it, as JAX resolves ``None`` on every single device; the associative-scan,
-blocked and temporally-sharded schedules raise ``NotImplementedError``.
+The temporally-sharded schedule (``shard=``) is not yet ported and raises
+``NotImplementedError``.
 
 Float32 products must be full FP32: the covariance recursion
 ``P <- A P A^T + Q`` compounds a reduced-precision product over T steps
@@ -40,6 +54,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -228,11 +243,14 @@ def discretize(f_aug, p_inf, dts, max_unique: int | None = None):
     identity). A scalar step returns (m, m) matrices; a (T,) vector returns
     (T, m, m), one ``matrix_exp`` per DISTINCT step gathered to the steps
     (the steps are read on the host; equal steps get bitwise-equal
-    transitions).
+    transitions). Steps that require a gradient take one batched
+    ``matrix_exp`` over all T instead, differentiable in ``dts`` (JAX's
+    branch for traced steps).
 
-    ``max_unique``: a checked bound on the number of distinct steps —
-    ``ValueError`` when ``dts`` holds more (the JAX package's silent
-    nearest-bucket gather under jit has no counterpart in the port)."""
+    ``max_unique``: a checked bound on the number of distinct steps of the
+    bucketed branch — ``ValueError`` when ``dts`` holds more (the JAX
+    package's silent nearest-bucket gather under jit has no counterpart in
+    the port)."""
 
     def expm_q(dt):
         a = torch.linalg.matrix_exp(f_aug * dt[..., None, None])
@@ -240,7 +258,7 @@ def discretize(f_aug, p_inf, dts, max_unique: int | None = None):
 
     if not isinstance(dts, torch.Tensor):
         dts = torch.as_tensor(dts, dtype=f_aug.dtype, device=f_aug.device)
-    if dts.ndim == 0:
+    if dts.ndim == 0 or dts.requires_grad:
         return expm_q(dts)
     u, inv = np.unique(_host(dts), return_inverse=True)
     if max_unique is not None and u.size > max_unique:
@@ -251,6 +269,57 @@ def discretize(f_aug, p_inf, dts, max_unique: int | None = None):
     a_u, q_u = expm_q(torch.as_tensor(u, dtype=dts.dtype, device=f_aug.device))
     idx = torch.as_tensor(inv.reshape(-1), device=f_aug.device)
     return a_u[idx], q_u[idx]
+
+
+# Pade [13/13] (float64) and [7/7] (float32): the 1-norm below which the
+# approximant needs no scaling, and its coefficients b_0..b_q (Higham 2005;
+# jax.scipy.linalg.expm's highest degree for each type).
+_PADE = {
+    torch.float64: (5.371920351148152, (
+        64764752532480000.0, 32382376266240000.0, 7771770303897600.0, 1187353796428800.0,
+        129060195264000.0, 10559470521600.0, 670442572800.0, 33522128640.0, 1323241920.0,
+        40840800.0, 960960.0, 16380.0, 182.0, 1.0)),
+    torch.float32: (3.925724783138660, (
+        17297280.0, 8648640.0, 1995840.0, 277200.0, 25200.0, 1512.0, 56.0, 1.0)),
+}
+# Squarings that _expm_device can apply: a larger 1-norm gives NaN.
+EXPM_MAX_SQUARINGS = 20
+
+
+def _expm_device(x):
+    """``expm(x)`` (batched over leading axes) by scaling and squaring with
+    no host sync: the scaling ``s`` is computed on the device and the
+    squarings run ``EXPM_MAX_SQUARINGS`` times, each kept or dropped by a
+    device-side select (``torch.linalg.matrix_exp`` reads its scaling on
+    the host, one sync a call). A 1-norm above ``2^EXPM_MAX_SQUARINGS``
+    times the Pade bound gives NaN, never a wrong finite transition."""
+    theta, b = _PADE[x.dtype]
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    s = torch.clamp(torch.ceil(torch.log2(x.abs().sum(-2).amax(-1) / theta)), min=0.0)
+    xs = x * torch.exp2(-s)[..., None, None]
+    x2 = xs @ xs
+    x4 = x2 @ x2
+    x6 = x4 @ x2
+    if len(b) == 14:
+        u = xs @ (x6 @ (b[13] * x6 + b[11] * x4 + b[9] * x2)
+                  + b[7] * x6 + b[5] * x4 + b[3] * x2 + b[1] * eye)
+        v = x6 @ (b[12] * x6 + b[10] * x4 + b[8] * x2) + b[6] * x6 + b[4] * x4 + b[2] * x2 \
+            + b[0] * eye
+    else:
+        u = xs @ (b[7] * x6 + b[5] * x4 + b[3] * x2 + b[1] * eye)
+        v = b[6] * x6 + b[4] * x4 + b[2] * x2 + b[0] * eye
+    r, _ = torch.linalg.solve_ex(v - u, v + u)
+    squaring = torch.arange(EXPM_MAX_SQUARINGS, device=x.device) < s[..., None]
+    for k in range(EXPM_MAX_SQUARINGS):
+        r = torch.where(squaring[..., k, None, None], r @ r, r)
+    return torch.where((s > EXPM_MAX_SQUARINGS)[..., None, None], torch.nan, r)
+
+
+def _discretize_device(f_aug, p_inf, dt):
+    """:func:`discretize` of a step held on the device (scalar or batched),
+    without a host sync (:func:`_expm_device`)."""
+    a = _expm_device(f_aug * dt[..., None, None])
+    return a, _symmetrize(p_inf - a @ p_inf @ a.mT)
 
 
 def gene_observation_matrix(order: int, num_genes: int, replicates: int = 1,
@@ -275,18 +344,14 @@ def _cholesky(s_mat):
 
 
 def _gauss_ll_chol(r, chol):
-    """log N(r; 0, L L^T) from the innovation covariance's factor."""
-    al = torch.linalg.solve_triangular(chol, r[:, None], upper=False)[:, 0]
+    """log N(r; 0, L L^T) from the innovation covariance's factor, batched
+    over leading axes of ``r`` (..., n_o) and ``chol`` (..., n_o, n_o)."""
+    al = torch.linalg.solve_triangular(chol, r[..., None], upper=False)[..., 0]
     return (
-        -0.5 * torch.sum(al * al)
-        - torch.sum(torch.log(torch.diagonal(chol)))
-        - 0.5 * r.shape[0] * LOG_2PI
+        -0.5 * torch.sum(al * al, dim=-1)
+        - torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+        - 0.5 * r.shape[-1] * LOG_2PI
     )
-
-
-def _gauss_ll(r, s_mat):
-    """log N(r; 0, s_mat) for one innovation (n_o,)."""
-    return _gauss_ll_chol(r, _cholesky(s_mat))
 
 
 def _joseph_update(m_pred, p_pred, h, r_var, y):
@@ -399,28 +464,315 @@ def kalman_filter(a, q, h, r_var, ys, p0, m0=None, mask=None, obs_mask=None,
 
 
 # ---------------------------------------------------------------------------
+# The filtering semigroup and the log-depth and blocked schedules.
+# ---------------------------------------------------------------------------
+
+
+def _mv(mat, vec):
+    """Batched matrix-vector product over arbitrary leading axes."""
+    return (mat @ vec[..., None])[..., 0]
+
+
+def _filter_element(a, q, h, rv, ys, mask):
+    """Per-step elements of the filtering semigroup (Sarkka &
+    Garcia-Fernandez 2021, eq. 10), batched over the T steps: ``(A, b, C,
+    eta, J)`` such that composing elements left to right gives the
+    filtered posterior. ``a``/``q`` (T, m, m), ``h`` (n_o, m) or (T, n_o,
+    m), ``rv``/``ys`` (T, n_o), ``mask`` (T,) or None. A masked step (no
+    observation) is the pure prediction element (A_i, 0, Q_i, 0, 0)."""
+    hq = h @ q
+    chol = _cholesky(hq @ h.mT + torch.diag_embed(rv))
+    ha = h @ a
+    m_dim = q.shape[-1]
+    # S^-1 [H Q | H A]: one solve for the gain and for J's factor.
+    sinv = torch.cholesky_solve(torch.cat([hq, ha], dim=-1), chol)
+    gain = sinv[..., :m_dim].mT  # Q H^T S^-1  (T, m, n_o)
+    sinv_ha = sinv[..., m_dim:]
+    ikh = torch.eye(m_dim, dtype=q.dtype, device=q.device) - gain @ h
+    a_e = ikh @ a
+    b_e = _mv(gain, ys)
+    c_e = _symmetrize(ikh @ q)
+    eta_e = _mv(sinv_ha.mT, ys)
+    j_e = _symmetrize(ha.mT @ sinv_ha)
+    if mask is None:
+        return a_e, b_e, c_e, eta_e, j_e
+    keep = mask > 0
+    k2, k3 = keep[:, None], keep[:, None, None]
+    return (torch.where(k3, a_e, a), torch.where(k2, b_e, 0.0), torch.where(k3, c_e, q),
+            torch.where(k2, eta_e, 0.0), torch.where(k3, j_e, 0.0))
+
+
+def _combine(e1, e2):
+    """Associative composition of filtering elements (ibid., lemma 8),
+    ``e1`` the earlier interval, batched over leading axes. ``C1`` and
+    ``J2`` are symmetric, so the lemma's two resolvents ``(I + C1 J2)^-1``
+    and ``(I + J2 C1)^-1`` are one matrix ``E = I + J2 C1`` solved
+    transposed and plain: one LU (``lu_factor_ex``, no host check) serves
+    both ``lu_solve`` calls, as JAX's ``lu_solve`` trans=0/1 share one."""
+    a1, b1, c1, eta1, j1 = e1
+    a2, b2, c2, eta2, j2 = e2
+    e_mat = j2 @ c1
+    e_mat.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    lu, piv, _ = torch.linalg.lu_factor_ex(e_mat)
+    a2d = torch.linalg.lu_solve(lu, piv, a2.mT).mT  # A2 (I + C1 J2)^-1
+    a_new = a2d @ a1
+    b_new = _mv(a2d, b1 + _mv(c1, eta2)) + b2
+    c_new = _symmetrize(a2d @ c1 @ a2.mT + c2)
+    a1t_einv = torch.linalg.lu_solve(lu, piv, a1, adjoint=True).mT  # A1^T (I + J2 C1)^-1
+    eta_new = _mv(a1t_einv, eta2 - _mv(j2, b1)) + eta1
+    j_new = _symmetrize(a1t_einv @ j2 @ a1 + j1)
+    return a_new, b_new, c_new, eta_new, j_new
+
+
+def _apply_state(m_s, p_s, elem):
+    """Fold a filtered state ``(m, P)`` through a composite element:
+    ``combine((0, m, P, 0, 0), elem)``'s two outputs,
+    ``m' = A2 (I + P J2)^-1 (m + P eta2) + b2`` and
+    ``P' = A2 (I + P J2)^-1 P A2^T + C2`` — one LU, three products.
+    Batched over leading axes."""
+    a2, b2, c2, eta2, j2 = elem
+    e_mat = j2 @ p_s
+    e_mat.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    lu, piv, _ = torch.linalg.lu_factor_ex(e_mat)
+    a2d = torch.linalg.lu_solve(lu, piv, a2.mT).mT  # A2 (I + P J2)^-1
+    m_new = _mv(a2d, m_s + _mv(p_s, eta2)) + b2
+    p_new = _symmetrize(a2d @ p_s @ a2.mT + c2)
+    return m_new, p_new
+
+
+def _identity_element(m_dim, dtype, device=None):
+    """Identity of the filtering semigroup: combine(e, I) == e == combine(I, e)."""
+    kw = dict(dtype=dtype, device=device)
+    return (torch.eye(m_dim, **kw), torch.zeros((m_dim,), **kw), torch.zeros((m_dim, m_dim), **kw),
+            torch.zeros((m_dim,), **kw), torch.zeros((m_dim, m_dim), **kw))
+
+
+def _prior_element(m0, p0):
+    """The prior as a semigroup element ``(0, m0, P0, 0, 0)``: composed on
+    the left of the per-step elements it gives the filtered posterior at
+    every prefix (:func:`parallel_filter` puts the step-0 posterior in
+    element 0 this way)."""
+    m_dim = m0.shape[0]
+    zeros = torch.zeros((m_dim, m_dim), dtype=p0.dtype, device=p0.device)
+    return zeros, m0, p0, torch.zeros_like(m0), zeros
+
+
+def _associative_scan(fn, elems, reverse=False):
+    """Inclusive scan of the associative ``fn`` over the leading axis of a
+    tuple of (T, ...) tensors, by ``jax.lax.associative_scan``'s odd/even
+    recursion: combine neighbouring pairs, scan the half-length sequence,
+    combine back into the even positions. One call makes about
+    2 ceil(log2 T) batched ``fn`` calls, each over up to T/2 elements; any
+    T works. ``reverse=True`` scans from the end (JAX's element flip, so
+    ``fn`` receives the later interval first). Gradients come from
+    autograd through the slices."""
+    if reverse:
+        elems = tuple(torch.flip(e, (0,)) for e in elems)
+    out = _scan_levels(fn, elems)
+    if reverse:
+        out = tuple(torch.flip(e, (0,)) for e in out)
+    return out
+
+
+def _scan_levels(fn, elems):
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = fn(tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems))
+    odd = _scan_levels(fn, reduced)
+    if n % 2 == 0:
+        even = fn(tuple(e[:-1] for e in odd), tuple(e[2::2] for e in elems))
+    else:
+        even = fn(odd, tuple(e[2::2] for e in elems))
+    even = tuple(torch.cat([e[:1], r]) for e, r in zip(elems, even))
+    return tuple(_interleave(a, b) for a, b in zip(even, odd))
+
+
+def _interleave(a, b):
+    """``a0 b0 a1 b1 ...`` along the leading axis (len(a) - len(b) in {0, 1})."""
+    n_b = b.shape[0]
+    pairs = torch.stack([a[:n_b], b], dim=1).reshape((2 * n_b,) + b.shape[1:])
+    return pairs if a.shape[0] == n_b else torch.cat([pairs, a[n_b:]])
+
+
+def _schedule_inputs(a, q, h, r_var, ys, p0, m0, mask, obs_mask):
+    """Shared set-up of the semigroup schedules: per-step (A, Q), noise,
+    the masked observation model and the per-step likelihood corrections,
+    and the elements of every step."""
+    t_steps, n_o = ys.shape
+    m_dim = p0.shape[0]
+    dtype, dev = p0.dtype, p0.device
+    if m0 is None:
+        m0 = torch.zeros((m_dim,), dtype=dtype, device=dev)
+    r_var = torch.broadcast_to(torch.as_tensor(r_var, dtype=dtype, device=dev), (t_steps, n_o))
+    if mask is not None:
+        mask = torch.as_tensor(mask, dtype=dtype, device=dev).reshape(t_steps)
+    h_t, ll_corr = h, None
+    if obs_mask is not None:
+        obs_mask = torch.as_tensor(obs_mask, dtype=dtype, device=dev)
+        h_t, r_var, ys = _mask_obs(h, r_var, ys, obs_mask)
+        ll_corr = _mask_ll_correction(obs_mask)
+    if a.ndim == 2:
+        a = torch.broadcast_to(a, (t_steps, m_dim, m_dim))
+        q = torch.broadcast_to(q, (t_steps, m_dim, m_dim))
+    elems = _filter_element(a, q, h_t, r_var, ys, mask)
+    return a, q, h_t, r_var, ys, m0, mask, ll_corr, elems
+
+
+def _prefix_ll(a, q, h_t, r_var, ys, m0, p0, ms, ps, mask, ll_corr):
+    """The exact log-likelihood from the filtered prefix: every step's
+    one-step predictive density ``N(y_i; H A_i m_{i-1}, H (A_i P_{i-1}
+    A_i^T + Q_i) H^T + R_i)``, batched over the steps."""
+    m_prev = torch.cat([m0[None], ms[:-1]])
+    p_prev = torch.cat([p0[None], ps[:-1]])
+    p_pred = a @ p_prev @ a.mT + q
+    chol = _cholesky(h_t @ p_pred @ h_t.mT + torch.diag_embed(r_var))
+    lls = _gauss_ll_chol(ys - _mv(h_t, _mv(a, m_prev)), chol)
+    if ll_corr is not None:
+        lls = lls + ll_corr
+    return torch.sum(lls if mask is None else mask * lls)
+
+
+def parallel_filter(a, q, h, r_var, ys, p0, m0=None, mask=None, obs_mask=None):
+    """Log-depth Kalman filter: :func:`_associative_scan` over the
+    filtering semigroup. The output contract of :func:`kalman_filter`
+    (filtered means and covariances, the exact MLL, ``mask`` and per-entry
+    ``obs_mask``); ``mask`` is used on the device, not read on the host.
+
+    The prior is folded into element 0 (A = 0, (b, C) the filtered
+    posterior at step 0), so every prefix composite is the filtered
+    result; the log-likelihood is read off the filtered prefix
+    (:func:`_prefix_ll`)."""
+    assert_full_fp32(_WHO)
+    a, q, h_t, r_var, ys, m0, mask, ll_corr, elems = _schedule_inputs(
+        a, q, h, r_var, ys, p0, m0, mask, obs_mask)
+    h0 = h_t if h_t.ndim == 2 else h_t[0]
+    m_pred0 = a[0] @ m0
+    p_pred0 = _symmetrize(a[0] @ p0 @ a[0].T + q[0])
+    m_f0, p_f0, _ = _joseph_update(m_pred0, p_pred0, h0, r_var[0], ys[0])
+    if mask is not None:
+        m_f0 = torch.where(mask[0] > 0, m_f0, m_pred0)
+        p_f0 = torch.where(mask[0] > 0, p_f0, p_pred0)
+    elems = tuple(torch.cat([f[None], e[1:]]) for f, e in zip(_prior_element(m_f0, p_f0), elems))
+    _, ms, ps, _, _ = _associative_scan(_combine, elems)
+    return ms, ps, _prefix_ll(a, q, h_t, r_var, ys, m0, p0, ms, ps, mask, ll_corr)
+
+
+def _blocked_layout(t_steps, block):
+    """``(L, B, pad)`` of the blocked schedules: L the within-block length
+    (batched combines, depth L), B the number of blocks (the sequential
+    composite chain, depth B). ``block=None`` picks L ~ sqrt(T) rounded to
+    a power of two, where the depth L + B is least."""
+    if block is None:
+        block = 1 << max(1, round(math.log2(max(t_steps, 4)) / 2))
+    block = max(2, min(int(block), t_steps))
+    n_blocks = -(-t_steps // block)
+    return block, n_blocks, n_blocks * block - t_steps
+
+
+def _to_blocks(elems, ident, block_l, n_blocks, pad):
+    """(T, ...) elements padded with ``ident`` to L * B and laid out
+    (L, B, ...): the within-block offset leads, so one level is a B-wide
+    batch."""
+    if pad:
+        elems = tuple(torch.cat([e, i.expand((pad,) + i.shape)]) for e, i in zip(elems, ident))
+    return tuple(e.reshape((n_blocks, block_l) + e.shape[1:]).movedim(0, 1) for e in elems)
+
+
+def _from_blocks(levels):
+    """A list of L tuples of (B, ...) tensors -> a tuple of (B * L, ...)
+    tensors in time order."""
+    return tuple(torch.stack(f, dim=1).reshape((-1,) + f[0].shape[1:]) for f in zip(*levels))
+
+
+def blocked_filter(a, q, h, r_var, ys, p0, m0=None, mask=None, obs_mask=None,
+                   block: int | None = None):
+    """Blocked Kalman filter: batched combines inside blocks, a sequential
+    chain across them (depth L + B ~ 2 sqrt(T), ~2T combines in all). The
+    output contract of :func:`kalman_filter`.
+
+    1. the T elements, batched;
+    2. an L-level loop whose carry is the B-wide batch of block-local
+       prefixes, one batched :func:`_combine` a level;
+    3. the B composites chained through :func:`_apply_state` into
+       block-start states;
+    4. one batched :func:`_apply_state` expanding every prefix from its
+       block's start state, and the likelihood read off the filtered prefix.
+
+    Padding to L * B uses true identity elements; ``block=None`` resolves
+    L ~ sqrt(T) (:func:`_blocked_layout`)."""
+    assert_full_fp32(_WHO)
+    t_steps = ys.shape[0]
+    a, q, h_t, r_var, ys, m0, mask, ll_corr, elems = _schedule_inputs(
+        a, q, h, r_var, ys, p0, m0, mask, obs_mask)
+    m_dim = p0.shape[0]
+    block_l, n_blocks, pad = _blocked_layout(t_steps, block)
+    ident = _identity_element(m_dim, p0.dtype, p0.device)
+    elems_lb = _to_blocks(elems, ident, block_l, n_blocks, pad)
+    carry = tuple(i.expand((n_blocks,) + i.shape) for i in ident)
+    prefixes = []
+    for j in range(block_l):
+        carry = _combine(carry, tuple(e[j] for e in elems_lb))
+        prefixes.append(carry)
+    # Block-start states: the prior chained through the composites.
+    state, starts = (m0, p0), []
+    for b in range(n_blocks):
+        starts.append(state)
+        state = _apply_state(*state, tuple(c[b] for c in carry))
+    starts_m = torch.stack([s[0] for s in starts]).repeat_interleave(block_l, dim=0)
+    starts_p = torch.stack([s[1] for s in starts]).repeat_interleave(block_l, dim=0)
+    ms, ps = _apply_state(starts_m, starts_p, _from_blocks(prefixes))
+    ms, ps = ms[:t_steps], ps[:t_steps]
+    return ms, ps, _prefix_ll(a, q, h_t, r_var, ys, m0, p0, ms, ps, mask, ll_corr)
+
+
+# ---------------------------------------------------------------------------
 # Schedules, the MLL and its steady-state tail.
 # ---------------------------------------------------------------------------
 
 
-def _select_schedule(parallel, t_steps):
-    """The (filter, smoother) pair of ``parallel``: ``None`` and ``False``
-    give the sequential pair (JAX's ``None`` resolves to it on every single
-    device). The log-depth (``True``) and blocked (``'blocked'`` or an int
-    block length) schedules are not yet ported."""
-    del t_steps
-    if parallel is None or parallel is False:
+# The smallest T from which ``parallel=None`` picks the blocked pair on a
+# CUDA device (None: never). The port's own constant, set from the card:
+# at the dense10k ss shape (50 genes, m = 60, float32) the blocked loss and
+# gradient beat the sequential one by more than the larger interquartile
+# spread at both T measured, 200 and 2000, in two whole runs of
+# ``chip_smoke.py`` (``[ss auto]``; NVIDIA H100 80GB HBM3 at 700 W: 159.7 /
+# 145.2 ms against 482.8 / 581.1 ms at T = 200; PERF.md). The sequential
+# filter makes ~35 launches a step and the card waits on them; the blocked
+# schedule makes ~L + T/L levels of batched ones. The JAX package's
+# constant is None: on a v5e a scan step costs no launch.
+_AUTO_BLOCKED_MIN_T = 200
+
+
+def _select_schedule(parallel, t_steps, device=None):
+    """The (filter, smoother) pair of ``parallel``, with the signatures of
+    :func:`kalman_filter` / :func:`rts_smoother`:
+
+    - ``None``: the blocked pair on a CUDA ``device`` (default: the port's
+      default device, ``cuda``) when ``T >= _AUTO_BLOCKED_MIN_T``, else the
+      sequential pair; never the full associative pair.
+    - ``False``: the sequential pair. ``True``: the associative-scan pair.
+    - ``'blocked'``: the blocked pair; an int >= 2: the blocked pair with
+      that block length (an int < 2 raises ``ValueError``)."""
+    if parallel is None:
+        on_card = torch.device("cuda" if device is None else device).type == "cuda"
+        if on_card and _AUTO_BLOCKED_MIN_T is not None and t_steps >= _AUTO_BLOCKED_MIN_T:
+            return blocked_filter, blocked_rts_smoother
         return kalman_filter, rts_smoother
-    if isinstance(parallel, int) and not isinstance(parallel, bool) and parallel < 2:
-        raise ValueError(
-            f"parallel={parallel}: an integer selects the blocked "
-            "schedule's block length and must be >= 2; pass "
-            "True/False for the associative/sequential schedules"
-        )
-    raise NotImplementedError(
-        f"parallel={parallel!r}: the associative-scan and blocked schedules "
-        "are not yet ported (ROADMAP Queue 1 item 10); use parallel=None or False"
-    )
+    if parallel == "blocked":
+        return blocked_filter, blocked_rts_smoother
+    if isinstance(parallel, int) and not isinstance(parallel, bool):
+        if parallel < 2:
+            raise ValueError(
+                f"parallel={parallel}: an integer selects the blocked "
+                "schedule's block length and must be >= 2; pass "
+                "True/False for the associative/sequential schedules"
+            )
+        return (functools.partial(blocked_filter, block=parallel),
+                functools.partial(blocked_rts_smoother, block=parallel))
+    if parallel:
+        return parallel_filter, parallel_rts_smoother
+    return kalman_filter, rts_smoother
 
 
 def _sel_kwargs(fil, obs_slice):
@@ -455,8 +807,10 @@ def lfm_mll_ss(params, timepoints, y, *, jitter: float, replicates: int = 1,
     ``stationary_after=K``: K exact steps, then the frozen-gain tail
     (:func:`_stationary_tail_ll`); needs ``uniform=True`` and no
     ``obs_mask``. ``force_kernel``: ``'rbf'`` (order-``order`` SDE) or an
-    exact ``'matern12'``/``'matern32'``/``'matern52'`` prior. ``shard=``
-    is not yet ported.
+    exact ``'matern12'``/``'matern32'``/``'matern52'`` prior.
+    ``parallel``: the filter's schedule (:func:`_select_schedule`; the
+    selection-H update is the sequential filter's only). ``shard=`` is not
+    yet ported.
     """
     assert_full_fp32(_WHO)
     f_aug, p_inf, p0, _ = build_lfm_ssm(
@@ -518,7 +872,7 @@ def _gridded_ssm_mll(f_aug, p_inf, p0, h, mean_obs, t, y, r_var, *, parallel, un
     om = None if obs_mask is None else \
         torch.as_tensor(obs_mask, dtype=dtype, device=t.device).reshape(n_o, t_steps).T
 
-    fil, _ = _select_schedule(parallel, t_steps)
+    fil, _ = _select_schedule(parallel, t_steps, t.device)
     if uniform and t_steps >= 2:
         # Step 0 (prior at t=0 -> first observation) apart; steps 1..T-1
         # share one (A, Q).
@@ -652,6 +1006,90 @@ def rts_smoother(a, q, ms, ps, chol_gain_from: int | None = None):
     return torch.stack(out_m[::-1]), torch.stack(out_p[::-1])
 
 
+def _smoother_element(a_n, q_n, m_f, p_f, rcond):
+    """Elements of the smoothing semigroup (Sarkka & Garcia-Fernandez 2021,
+    sec. IV), batched over leading axes: ``(E, g, L)`` with
+    ``m_s[k] = E_k m_s[k+1] + g_k`` and ``P_s[k] = E_k P_s[k+1] E_k^T +
+    L_k``. ``a_n``/``q_n`` are the transitions into step k+1; the gain is
+    the sequential smoother's pseudo-solve (:func:`_pseudo_gain`)."""
+    p_pred = _symmetrize(a_n @ p_f @ a_n.mT + q_n)
+    gain = _pseudo_gain(p_f @ a_n.mT, p_pred, rcond)
+    g_vec = m_f - _mv(gain, _mv(a_n, m_f))
+    l_mat = _symmetrize(p_f - gain @ p_pred @ gain.mT)
+    return gain, g_vec, l_mat
+
+
+def _combine_smoother(e1, e2):
+    """Associative composition of smoothing elements; ``e1`` the earlier
+    interval (the composite maps the smoothed state after ``e2``'s span
+    onto ``e1``'s start)."""
+    ea, ga, la = e1
+    eb, gb, lb = e2
+    return ea @ eb, _mv(ea, gb) + ga, _symmetrize(ea @ lb @ ea.mT + la)
+
+
+def _combine_smoother_rev(e2, e1):
+    """:func:`_combine_smoother` with its arguments flipped, for the
+    reverse scan, whose accumulated (later) interval arrives first."""
+    return _combine_smoother(e1, e2)
+
+
+def _smoother_identity(m_dim, dtype, device=None):
+    """Identity of the smoothing semigroup: (I, 0, 0)."""
+    kw = dict(dtype=dtype, device=device)
+    return torch.eye(m_dim, **kw), torch.zeros((m_dim,), **kw), torch.zeros((m_dim, m_dim), **kw)
+
+
+def _build_smoother_elements(a, q, ms, ps, rcond):
+    """Elements of steps 0..T-1; the terminal one is the absorbing
+    ``(0, m_f[T-1], P_f[T-1])``, so every suffix composite's (g, L) is the
+    smoothed moment pair. ``a``/``q`` (m, m) or (T, m, m) as in
+    :func:`rts_smoother`."""
+    a_n, q_n = (a, q) if a.ndim == 2 else (a[1:], q[1:])
+    e, g, l_mat = _smoother_element(a_n, q_n, ms[:-1], ps[:-1], rcond)
+    m_dim = ms.shape[1]
+    e = torch.cat([e, torch.zeros((1, m_dim, m_dim), dtype=ms.dtype, device=ms.device)])
+    return e, torch.cat([g, ms[-1:]]), torch.cat([l_mat, ps[-1:]])
+
+
+def parallel_rts_smoother(a, q, ms, ps):
+    """Log-depth RTS smoother: a reverse :func:`_associative_scan` over the
+    smoothing semigroup. The output contract of :func:`rts_smoother`."""
+    assert_full_fp32(_WHO)
+    elems = _build_smoother_elements(a, q, ms, ps, _rts_rcond(ms.dtype))
+    _, ms_s, ps_s = _associative_scan(_combine_smoother_rev, elems, reverse=True)
+    return ms_s, ps_s
+
+
+def blocked_rts_smoother(a, q, ms, ps, block: int | None = None):
+    """Blocked RTS smoother, the backward mirror of :func:`blocked_filter`
+    (depth L + B): within each block an L-level reverse loop carries the
+    B-wide batch of block-local suffix composites, the B block composites
+    chain backward into each block's boundary composite, and one batched
+    combine expands every local suffix. Padding uses the smoothing
+    identity, an exact pass-through after the absorbing terminal element.
+    The output contract of :func:`rts_smoother`."""
+    assert_full_fp32(_WHO)
+    t_steps, m_dim = ms.shape
+    elems = _build_smoother_elements(a, q, ms, ps, _rts_rcond(ms.dtype))
+    block_l, n_blocks, pad = _blocked_layout(t_steps, block)
+    ident = _smoother_identity(m_dim, ms.dtype, ms.device)
+    elems_lb = _to_blocks(elems, ident, block_l, n_blocks, pad)
+    carry = tuple(i.expand((n_blocks,) + i.shape) for i in ident)
+    suffixes = [None] * block_l
+    for j in range(block_l - 1, -1, -1):
+        carry = _combine_smoother(tuple(e[j] for e in elems_lb), carry)
+        suffixes[j] = carry
+    # Boundary composites: for block b, the composite of blocks b+1..B-1.
+    bound, bounds = ident, [None] * n_blocks
+    for b in range(n_blocks - 1, -1, -1):
+        bounds[b] = bound
+        bound = _combine_smoother(tuple(c[b] for c in carry), bound)
+    bounds_t = tuple(torch.stack(f).repeat_interleave(block_l, dim=0) for f in zip(*bounds))
+    _, ms_s, ps_s = _combine_smoother(_from_blocks(suffixes), bounds_t)
+    return ms_s[:t_steps], ps_s[:t_steps]
+
+
 def lfm_predict_ss(params, timepoints, y, t_test, *, noise_var, replicates: int = 1,
                    order: int = 10, obs_mask=None, parallel=None, shard=None,
                    unique_dts=None, force_kernel: str = "rbf", interp: str = "union"):
@@ -663,7 +1101,8 @@ def lfm_predict_ss(params, timepoints, y, t_test, *, noise_var, replicates: int 
     test grids, updates masked to train steps. ``interp='bridge'``:
     smoother on the train grid only, each test time conditioned on its
     bracketing smoothed states (:func:`_bridge_smooth`). ``noise_var``:
-    scalar, (G*R,) or (T_train, G*R).
+    scalar, (G*R,) or (T_train, G*R). ``parallel``: the filter and
+    smoother pair (:func:`_select_schedule`).
 
     Contracts:
 
@@ -721,6 +1160,22 @@ def _union_grid_smooth(f_aug, p_inf, p0, h, t_train, t_test, y, mean_obs, noise_
     positions are computed on the host from the concrete grids. Returns the
     smoothed state ``(m_t, p_t)`` at the test times in time-sorted order
     (means centered)."""
+    dev = t_train.device
+    a, q, ys, rv_all, om_all, is_train, test_pos = _union_inputs(
+        f_aug, p_inf, t_train, t_test, y, mean_obs, noise_var, obs_mask, unique_dts)
+    fil, smo = _select_schedule(parallel, ys.shape[0], dev)
+    ms, ps, _ = fil(a, q, h, rv_all, ys, p0, mask=is_train.astype(np.float64),
+                    obs_mask=om_all, **_sel_kwargs(fil, obs_slice))
+    ms_s, ps_s = smo(a, q, ms, ps)
+    return ms_s[test_pos], ps_s[test_pos]
+
+
+def _union_inputs(f_aug, p_inf, t_train, t_test, y, mean_obs, noise_var, obs_mask, unique_dts):
+    """The union grid of train and test times (stable sort, computed on the
+    host from the concrete grids): its transitions, the centered train
+    observations scattered into it (zeros elsewhere), noise rows (1.0 on
+    test steps, which are never updated), the entry mask, the host boolean
+    train flags and the test positions."""
     dtype, dev = t_train.dtype, t_train.device
     n_o = mean_obs.shape[0]
     tt_host = _host(t_test)
@@ -749,12 +1204,7 @@ def _union_grid_smooth(f_aug, p_inf, p0, h, t_train, t_test, y, mean_obs, noise_
     if om_train is not None:
         om_all = torch.ones((n_all, n_o), dtype=dtype, device=dev)
         om_all[train_pos] = om_train
-
-    fil, smo = _select_schedule(parallel, n_all)
-    ms, ps, _ = fil(a, q, h, rv_all, ys, p0, mask=is_train.astype(np.float64),
-                    obs_mask=om_all, **_sel_kwargs(fil, obs_slice))
-    ms_s, ps_s = smo(a, q, ms, ps)
-    return ms_s[test_pos], ps_s[test_pos]
+    return a, q, ys, rv_all, om_all, is_train, test_pos
 
 
 def _bridge_smooth(f_aug, p_inf, p0, h, t_train, t_test, y, mean_obs, noise_var,
@@ -782,7 +1232,7 @@ def _bridge_smooth(f_aug, p_inf, p0, h, t_train, t_test, y, mean_obs, noise_var,
     dts = torch.diff(t_train, prepend=zero)
     a, q = discretize(f_aug, p_inf, dts, max_unique=unique_dts)
     ys, rv, om = _train_inputs(t_train, y, mean_obs, noise_var, obs_mask)
-    fil, smo = _select_schedule(parallel, t_steps)
+    fil, smo = _select_schedule(parallel, t_steps, dev)
     ms, ps, _ = fil(a, q, h, rv, ys, p0, obs_mask=om, **_sel_kwargs(fil, obs_slice))
     ms_s, ps_s = smo(a, q, ms, ps)
 
@@ -835,3 +1285,269 @@ def _pick_smooth(interp):
     if interp == "bridge":
         return _bridge_smooth
     raise ValueError(f"interp must be 'union' or 'bridge', got {interp!r}")
+
+
+# ---------------------------------------------------------------------------
+# Streaming (online) inference: constant memory, one update an arrival.
+# ---------------------------------------------------------------------------
+
+
+class FilterCarry(NamedTuple):
+    """Streaming filter state, the sufficient statistics of everything
+    absorbed so far: the filtered (centered) mean (m,) and covariance
+    (m, m), the time of the last absorbed observation (the prior sits at
+    t = 0) and the marginal log-likelihood of the absorbed prefix."""
+
+    mean: torch.Tensor
+    cov: torch.Tensor
+    t_last: torch.Tensor
+    ll: torch.Tensor
+
+
+def _on(x, dtype, device):
+    """``x`` as a tensor of ``dtype`` on ``device``: a tensor already there
+    is returned as it is, a Python number is filled on the device (no
+    host-to-device copy, so no host sync on a card)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    if isinstance(x, (int, float)):
+        return torch.full((), float(x), dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def streaming_init(params, *, replicates: int = 1, order: int = 10, force_kernel: str = "rbf"):
+    """Start streaming SIMM inference: ``(carry, aux)``, ``aux``
+    holding the static model pieces ``(f_aug, p_inf, h, mean_obs,
+    h_force)`` that :func:`streaming_update` and :func:`streaming_predict`
+    take. Each new observation vector then costs one O((p+G)^3) update at
+    constant memory; the batch filter over the same grid gives the same
+    trajectory."""
+    g = params.decay.shape[0]
+    f_aug, p_inf, p0, h_force = build_lfm_ssm(
+        params.decay, params.sensitivity, params.lengthscale, order=order,
+        force_kernel=force_kernel,
+    )
+    dtype, dev = p0.dtype, p0.device
+    h = gene_observation_matrix(p0.shape[0] - g, g, replicates, dtype, dev)
+    mean_obs = (params.basal / params.decay).repeat(replicates)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    carry = FilterCarry(mean=torch.zeros((p0.shape[0],), dtype=dtype, device=dev), cov=p0,
+                        t_last=zero, ll=zero)
+    return carry, (f_aug, p_inf, h, mean_obs, h_force)
+
+
+def streaming_update(carry: FilterCarry, aux, t_new, y_new, noise_var, obs_mask=None):
+    """Absorb one observation vector ``y_new`` (n_o,) at ``t_new``: predict
+    across the gap, measurement-update, accumulate the likelihood.
+    ``noise_var``: (n_o,) or scalar; ``obs_mask``: optional (n_o,) {0, 1}
+    per-entry missingness (masked entries may be NaN; deleted exactly, as
+    the batch filter deletes them). Returns the new carry.
+
+    An out-of-order ``t_new < carry.t_last`` poisons the carry's ``ll`` to
+    NaN at this call and leaves the moments at their pre-call state. The
+    gap is discretized on the device (:func:`_expm_device`), and a Python
+    number or a tensor already on the device is taken without a copy, so
+    an arrival makes no host sync."""
+    assert_full_fp32(_WHO)
+    f_aug, p_inf, h, mean_obs, _ = aux
+    dtype, dev = carry.mean.dtype, carry.mean.device
+    n_o = mean_obs.shape[0]
+    t_new = _on(t_new, dtype, dev)
+    in_order = t_new >= carry.t_last
+    yc = _on(y_new, dtype, dev) - mean_obs
+    rv = torch.broadcast_to(_on(noise_var, dtype, dev), (n_o,))
+    a, q = _discretize_device(f_aug, p_inf, t_new - carry.t_last)
+    m_pred = a @ carry.mean
+    p_pred = _symmetrize(a @ carry.cov @ a.T + q)
+    corr = 0.0
+    h_u, rv_u, yc_u = h, rv, yc
+    if obs_mask is not None:
+        om = _on(obs_mask, dtype, dev)[None, :]
+        h_m, rv_m, yc_m = _mask_obs(h, rv[None, :], yc[None, :], om)
+        corr = _mask_ll_correction(om)[0]
+        h_u, rv_u, yc_u = h_m[0], rv_m[0], yc_m[0]
+    m_up, p_up, ll_i = _joseph_update(m_pred, p_pred, h_u, rv_u, yc_u)
+    return FilterCarry(
+        mean=torch.where(in_order, m_up, carry.mean),
+        cov=torch.where(in_order, p_up, carry.cov),
+        t_last=torch.maximum(t_new, carry.t_last),
+        ll=torch.where(in_order, carry.ll + ll_i + corr, torch.nan),
+    )
+
+
+def streaming_freeze(carry: FilterCarry, aux, dt, noise_var):
+    """Freeze the per-arrival update at the steady-state gain of a fixed
+    arrival cadence ``dt``: a pack for :func:`streaming_update_frozen`,
+    whose arrival costs an m^2 matvec and a triangular solve instead of the
+    O(m^3) covariance update. The gain and innovation factor are frozen at
+    the fixed point implied by the carry's covariance, so call it after a
+    warm-up of exact updates (the error contract of ``stationary_after``).
+    ``noise_var``: (n_o,) or scalar, fixed across arrivals."""
+    assert_full_fp32(_WHO)
+    f_aug, p_inf, h, mean_obs, _ = aux
+    dtype, dev = carry.mean.dtype, carry.mean.device
+    n_o = mean_obs.shape[0]
+    rv = torch.broadcast_to(_on(noise_var, dtype, dev), (n_o,))
+    dt = _on(dt, dtype, dev)
+    a, q = _discretize_device(f_aug, p_inf, dt)
+    p_pred = _symmetrize(a @ carry.cov @ a.T + q)
+    chol = _cholesky(h @ p_pred @ h.T + torch.diag(rv))
+    gain = torch.cholesky_solve(h @ p_pred, chol).T
+    ikh = torch.eye(carry.mean.shape[0], dtype=dtype, device=dev) - gain @ h
+    p_filt = _symmetrize(ikh @ p_pred @ ikh.T + (gain * rv[None, :]) @ gain.T)
+    const = torch.sum(torch.log(torch.diagonal(chol))) + 0.5 * n_o * LOG_2PI
+    return {"dt": dt, "mmat": ikh @ a, "ha": h @ a, "gain": gain, "chol": chol,
+            "const": const, "p_filt": p_filt, "mean_obs": mean_obs}
+
+
+def streaming_update_frozen(carry: FilterCarry, pack, y_new):
+    """Absorb one on-cadence observation through a :func:`streaming_freeze`
+    pack: the O(m^2) serving update. The carry's covariance is pinned at the
+    pack's steady filtered covariance, so :func:`streaming_predict` keeps
+    working off the same carry."""
+    assert_full_fp32(_WHO)
+    yc = _on(y_new, carry.mean.dtype, carry.mean.device) - pack["mean_obs"]
+    r = yc - pack["ha"] @ carry.mean
+    al = torch.linalg.solve_triangular(pack["chol"], r[:, None], upper=False)[:, 0]
+    m_new = pack["mmat"] @ carry.mean + pack["gain"] @ yc
+    ll_i = -0.5 * torch.sum(al * al) - pack["const"]
+    return FilterCarry(mean=m_new, cov=pack["p_filt"], t_last=carry.t_last + pack["dt"],
+                       ll=carry.ll + ll_i)
+
+
+def streaming_predict(carry: FilterCarry, aux, params, t_query):
+    """Forecast the latent force and the gene levels at ``t_query`` (>=
+    ``carry.t_last``) from the carry: filtered and predictive, conditioned
+    on the absorbed prefix only. Returns ``(f_mean, f_var, x_mean, x_var)``,
+    x per gene with its mean added back."""
+    assert_full_fp32(_WHO)
+    f_aug, p_inf, _, _, h_force = aux
+    dtype, dev = carry.mean.dtype, carry.mean.device
+    a, q = _discretize_device(f_aug, p_inf, _on(t_query, dtype, dev) - carry.t_last)
+    m_q = _mv(a, carry.mean)
+    p_q = _symmetrize(a @ carry.cov @ a.mT + q)
+    order = carry.mean.shape[0] - params.decay.shape[0]
+    return (m_q @ h_force, (p_q @ h_force) @ h_force, m_q[..., order:] + params.basal / params.decay,
+            torch.diagonal(p_q, dim1=-2, dim2=-1)[..., order:])
+
+
+# ---------------------------------------------------------------------------
+# Trajectory sampling: FFBS posterior draws and prior draws, O(T) each.
+# ---------------------------------------------------------------------------
+
+
+def _psd_sqrt_traced(p):
+    """Symmetric PSD square root ``v sqrt(max(w, 0))`` from ``eigh``, batched:
+    the sampling covariances are exactly singular along deterministic
+    directions (the t = 0 gene block, dt = 0 steps), where a Cholesky
+    fails."""
+    w, v = torch.linalg.eigh(_symmetrize(p))
+    return v * torch.sqrt(torch.clamp(w, min=0.0))[..., None, :]
+
+
+def _ffbs_pieces(a, q, ms, ps, rcond):
+    """The draw-independent pieces of the backward pass over filtered
+    ``(ms, ps)`` and per-step ``(a, q)``: the gains ``G_k`` (n-1, m, m),
+    the square roots of ``P_f[k] - G_k P_pred G_k^T`` (n-1, m, m) and of
+    the terminal ``P_f[n-1]`` (one batched ``eigh`` for all)."""
+    a_n, q_n, p_f = a[1:], q[1:], ps[:-1]
+    p_pred = _symmetrize(a_n @ p_f @ a_n.mT + q_n)
+    gains = _pseudo_gain(p_f @ a_n.mT, p_pred, rcond)
+    cov = _symmetrize(p_f - gains @ p_pred @ gains.mT)
+    roots = _psd_sqrt_traced(torch.cat([cov, ps[-1:]]))
+    return gains, roots[:-1], roots[-1]
+
+
+def _ffbs_backward(m_f, a_n, gains, sqrts, z_t, eps):
+    """The backward pass shared by all S draws over the filtered means
+    ``m_f`` (n-1, m) of steps 0..n-2 and the transitions ``a_n`` into steps
+    1..n-1: ``z_t`` (S, m) the terminal draw, ``eps`` (n-1, S, m) standard
+    normals; each step ``z_k = m_k + (z_{k+1} - A m_k) G_k^T + e_k sq_k^T``
+    on the (S, m) batch. Returns the (n, S, m) trajectories."""
+    am = _mv(a_n, m_f)
+    noise = eps @ sqrts.mT
+    z, out = z_t, [z_t]
+    for k in range(m_f.shape[0] - 1, -1, -1):
+        z = torch.addmm(m_f[k], z - am[k], gains[k].mT) + noise[k]
+        out.append(z)
+    return torch.stack(out[::-1])
+
+
+def posterior_sample_ss(params, timepoints, y, t_test, generator, *, noise_var,
+                        num_samples: int = 1, replicates: int = 1, order: int = 10,
+                        force_kernel: str = "rbf", unique_dts=None):
+    """Joint posterior draws of the latent force at ``t_test`` by
+    forward-filter backward-sampling (Carter & Kohn 1994) on the union
+    train/test grid: ``z_T ~ N(m_T, P_T)``, then ``z_k | z_{k+1} ~ N(m_k +
+    G_k (z_{k+1} - A m_k), P_k - G_k P_pred G_k^T)`` with the smoother's
+    pseudo-solve gain. The gains and noise square roots are shared by all
+    draws, and the backward pass carries the (S, m) batch, so S draws cost
+    one chain. ``generator``: a ``torch.Generator`` on the inputs' device
+    (JAX's ``key``); the terminal normals are drawn first, then the rest.
+
+    Returns ``(num_samples, T_test)`` draws in time-sorted (stable) order.
+    ``noise_var``, ``unique_dts`` (a checked bound) and negative test times
+    as :func:`lfm_predict_ss` with ``interp='union'``."""
+    assert_full_fp32(_WHO)
+    g = params.decay.shape[0]
+    t_train = torch.as_tensor(timepoints)
+    t_test = torch.as_tensor(t_test, dtype=t_train.dtype, device=t_train.device)
+    dtype, dev = t_train.dtype, t_train.device
+    f_aug, p_inf, p0, h_force = build_lfm_ssm(
+        params.decay, params.sensitivity, params.lengthscale, order=order,
+        force_kernel=force_kernel,
+    )
+    m_dim = p0.shape[0]
+    h = gene_observation_matrix(m_dim - g, g, replicates, dtype, dev)
+    mean_obs = (params.basal / params.decay).repeat(replicates)
+    a, q, ys, rv_all, _, is_train, test_pos = _union_inputs(
+        f_aug, p_inf, t_train, t_test, y, mean_obs, noise_var, None, unique_dts)
+    ms, ps, _ = kalman_filter(a, q, h, rv_all, ys, p0, mask=is_train.astype(np.float64),
+                              obs_slice=(m_dim - g) if replicates == 1 else None)
+    gains, sqrts, sqrt_t = _ffbs_pieces(a, q, ms, ps, _rts_rcond(dtype))
+    kw = dict(generator=generator, dtype=dtype, device=dev)
+    z_t = ms[-1][None, :] + torch.randn((num_samples, m_dim), **kw) @ sqrt_t.mT
+    eps = torch.randn((ms.shape[0] - 1, num_samples, m_dim), **kw)
+    traj = _ffbs_backward(ms[:-1], a[1:], gains, sqrts, z_t, eps)
+    return (traj @ h_force).T[:, test_pos]
+
+
+def _prior_forward(a, sqrts, z0, eps):
+    """Prior trajectories ``z_i = A_i z_{i-1} + sq_i e_i`` from ``z0`` (S, m)
+    with standard normals ``eps`` (T, S, m): (T, S, m)."""
+    noise = eps @ sqrts.mT
+    z, out = z0, []
+    for i in range(a.shape[0]):
+        z = torch.addmm(noise[i], z, a[i].mT)
+        out.append(z)
+    return torch.stack(out)
+
+
+def sample_trajectory_ss(params, timepoints, generator, *, num_samples: int = 1,
+                         order: int = 10, force_kernel: str = "rbf"):
+    """Prior draws of (force, gene) trajectories at the times
+    ``timepoints``, one forward pass over the (S, m) batch, O(T (p+G)^3).
+    The t = 0 convention of the generative model (force at its stationary
+    marginal, genes deterministic at ``B/D``); with a Matern
+    ``force_kernel`` the draw is from the exact prior. ``generator`` as in
+    :func:`posterior_sample_ss` (the t = 0 normals first). Returns ``(f,
+    x)``, (num_samples, T) and (num_samples, T, G), gene means added."""
+    assert_full_fp32(_WHO)
+    g = params.decay.shape[0]
+    t = torch.as_tensor(timepoints)
+    dtype, dev = t.dtype, t.device
+    f_aug, p_inf, p0, h_force = build_lfm_ssm(
+        params.decay, params.sensitivity, params.lengthscale, order=order,
+        force_kernel=force_kernel,
+    )
+    m_dim = p0.shape[0]
+    a, q = discretize(f_aug, p_inf, torch.diff(t, prepend=torch.zeros((1,), dtype=dtype,
+                                                                       device=dev)))
+    roots = _psd_sqrt_traced(torch.cat([p0[None], q]))
+    kw = dict(generator=generator, dtype=dtype, device=dev)
+    z0 = torch.randn((num_samples, m_dim), **kw) @ roots[0].mT
+    eps = torch.randn((t.shape[0], num_samples, m_dim), **kw)
+    zs = _prior_forward(a, roots[1:], z0, eps)
+    f = (zs @ h_force).T
+    x = (zs[..., m_dim - g:] + (params.basal / params.decay)).transpose(0, 1)
+    return f, x

@@ -303,13 +303,19 @@ def test_ss_entry_points_refuse_tf32():
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.parametrize("parallel, exc", [(True, NotImplementedError),
-                                           ("blocked", NotImplementedError),
-                                           (8, NotImplementedError), (1, ValueError)])
-def test_unported_schedules_raise(parallel, exc):
+@pytest.mark.parametrize("parallel", [True, "blocked", 8, 1])
+def test_schedules_run_or_refuse(parallel):
+    """The associative-scan, blocked and block-8 schedules give the
+    sequential MLL (1e-9); an int block length below 2 raises; ``shard=``
+    (the temporally-sharded filter) is refused as not yet ported."""
     _, tp, t, y = _problem(2, 6, seed=1)
-    with pytest.raises(exc, match="item 10" if exc is NotImplementedError else ">= 2"):
-        ss.lfm_mll_ss(tp, _t(t), _t(y), jitter=1e-4, parallel=parallel)
+    if parallel == 1 and not isinstance(parallel, bool):
+        with pytest.raises(ValueError, match=">= 2"):
+            ss.lfm_mll_ss(tp, _t(t), _t(y), jitter=1e-4, parallel=parallel)
+    else:
+        seq = float(ss.lfm_mll_ss(tp, _t(t), _t(y), jitter=1e-4, parallel=False))
+        got = float(ss.lfm_mll_ss(tp, _t(t), _t(y), jitter=1e-4, parallel=parallel))
+        assert abs(got - seq) <= 1e-9 * max(1.0, abs(seq))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ss.lfm_mll_ss(tp, _t(t), _t(y), jitter=1e-4, shard=("mesh", "t"))
 
