@@ -146,7 +146,24 @@ it on a parent tree and on this one, in turns, to compare them. Phases (each rai
    ``[streaming]`` (the series one arrival at a time: the ll against the
    batch MLL, us per arrival, no host sync per arrival) and ``[dense
    metrics]`` (``--metrics-path`` on each dense engine).
-7. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+7. The second-order (spring-damper) family (:func:`simm2_phases`, their
+   total wall seconds on a line of its own): ``[simm2 erf]`` (the complex
+   erf on the card against ``scipy.special.erf`` over |Re| <= 26, |Im| <= 5
+   where |erf| <= 1e6: complex128 1e-12 and complex64 8.6e-6, times
+   max(1, |erf|); its analytic backward against a float64 central
+   difference; host us and card ms of one call); ``[simm2 p53]``
+   (``main.run_second_order``, 150 steps in float64 on the card and on the
+   CPU: final loss rel 1e-6, first step rel 1e-10; wall, kinetics table,
+   host syncs per step); ``[dense simm2]`` (``main.run_dense --model
+   simm2`` at 50 x 200 = 1e4, float32, DENSE_STEPS steps through the table
+   Gram, cuSOLVER and K3 once a step: step ms and spread, peak memory,
+   finiteness, alpha/omega recovery; the first step within rel 1e-4 of
+   float64 and within rel 1e-5 of the plain SYRK with a raw-gradient cosine
+   >= 0.999; stage ms); ``[dense simm2 ss]`` (the same data through
+   ``--mll-engine ss``, m = 110: step ms, syncs, device busy share, the
+   smoothed force by union and bridge, float64 parity with the exact MLL
+   within 5e-3 x max(1, |MLL|) and cosine >= 0.999).
+8. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
 import importlib.util
@@ -1305,6 +1322,385 @@ def ss_engine_phases(drive, dense, smi):
     return times
 
 
+def simm2_erf(smi):
+    """``[simm2 erf]``: ``ops.special.erf_complex`` on the card against
+    ``scipy.special.erf`` on the host over the order-2 kernels' working
+    domain (|Re| <= 26, |Im| <= 5), wherever |erf| <= 1e6: complex128 within
+    1e-12 x max(1, |erf|), complex64 (40 terms) within the JAX package's
+    8.6e-6 x max(1, |erf|); the analytic backward against a float64 central
+    difference (1e-6 x max(1, |g|)); the host microseconds and the card's
+    milliseconds of one call."""
+    import numpy as np
+    import scipy.special
+    import torch
+
+    from dis_project_tpu_torch.ops.special import erf_complex
+
+    dev = torch.device("cuda")
+    re, im = np.meshgrid(np.linspace(-26.0, 26.0, 521), np.linspace(-5.0, 5.0, 101))
+    z = (re + 1j * im).ravel()
+    for cdtype, limit in ((torch.complex128, 1e-12), (torch.complex64, 8.6e-6)):
+        zt = torch.as_tensor(z, dtype=cdtype, device=dev)
+        got = erf_complex(zt).cpu().numpy().astype(np.complex128)
+        ref = scipy.special.erf(zt.cpu().numpy().astype(np.complex128))
+        keep = np.abs(ref) <= 1e6
+        err = float(np.max(np.abs(got - ref)[keep] / np.maximum(1.0, np.abs(ref[keep]))))
+        print(f"[simm2 erf] {cdtype} on {keep.sum()} of {z.size} points (|erf| <= 1e6): max "
+              f"|erf - scipy| / max(1, |erf|) {err:.3e} (limit {limit:g}) ({smi})")
+        require(math.isfinite(err) and err <= limit, f"erf_complex {cdtype} vs scipy: {err}")
+
+    # The analytic backward against a central difference, float64: a real
+    # loss of erf(x + iy), each point's derivative by x and by y.
+    rng = np.random.default_rng(12)
+    x0 = torch.as_tensor(rng.uniform(-3.0, 3.0, 64), device=dev)
+    y0 = torch.as_tensor(rng.uniform(-2.0, 2.0, 64), device=dev)
+    wr, wi = 0.7, -0.4
+
+    def per_point(x, y):
+        e = erf_complex(torch.complex(x, y))
+        return wr * e.real + wi * e.imag
+
+    xl, yl = x0.clone().requires_grad_(True), y0.clone().requires_grad_(True)
+    gx, gy = torch.autograd.grad(per_point(xl, yl).sum(), (xl, yl))
+    h = 1e-6
+    with torch.no_grad():
+        fx = (per_point(x0 + h, y0) - per_point(x0 - h, y0)) / (2 * h)
+        fy = (per_point(x0, y0 + h) - per_point(x0, y0 - h)) / (2 * h)
+    gerr = max(float(((gx - fx).abs() / gx.abs().clamp(min=1.0)).max()),
+               float(((gy - fy).abs() / gy.abs().clamp(min=1.0)).max()))
+    print(f"[simm2 erf] backward vs central difference (f64, 64 points, Re and Im): max "
+          f"err / max(1, |g|) {gerr:.3e} (limit 1e-6) ({smi})")
+    require(gerr <= 1e-6, f"erf_complex backward vs central difference: {gerr}")
+
+    # Host time of one call (enqueue, no sync inside) and the card's time,
+    # at the table Gram's argument count (dense10k: 4 tables, 100 rates) and
+    # at one p53 row-route call (35 x 35).
+    for label, n in (("table Gram (dense10k, 80,000 args)", (4 * 200 - 1) * 100 + 100),
+                     ("p53 row route (35 x 35)", 35 * 35)):
+        for cdtype in (torch.complex64, torch.complex128):
+            zt = torch.as_tensor(z[:n] if n <= z.size else np.resize(z, n), dtype=cdtype,
+                                 device=dev)
+            erf_complex(zt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                erf_complex(zt)
+            host_us = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+            dev_ms = back_to_back_ms(lambda: erf_complex(zt))
+            print(f"[simm2 erf] one call, {label}, {cdtype}: host {host_us:.1f} us (enqueue), "
+                  f"card {dev_ms:.4f} ms (back to back) ({smi})")
+
+
+def simm2_p53(drive, smi):
+    """``[simm2 p53]``: ``main.run_second_order`` (``--model simm2``, the
+    p53 synthetic data, float64, 150 iterations) on the card and on the
+    CPU in this process: the final loss within rel 1e-6 (150 Adam steps
+    amplify last-bit differences of the card's complex exp), the first
+    step within rel 1e-10; the wall, the kinetics table (printed by the
+    route) and the host syncs per training step."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
+    from dis_project_tpu_torch.models import simm2
+    from dis_project_tpu_torch.training import generic
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_simm2_")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        config = cfg.RunConfig(model="simm2", num_iters=150, device=device,
+                               out_dir=os.path.join(tmp, device),
+                               metrics_path=os.path.join(tmp, f"{device}.jsonl"))
+        runs[device] = drive(f"simm2 p53 {device}", lambda: port_main.run_second_order(config),
+                             ())
+    card, host = runs["cuda"], runs["cpu"]
+    hc, hh = card.result.history.tolist(), host.result.history.tolist()
+    rel_final = abs(hc[-1] - hh[-1]) / abs(hh[-1])
+    rel_first = abs(hc[0] - hh[0]) / abs(hh[0])
+    lat = card.latent
+    print(f"[simm2 p53] 150 steps f64: final loss card {hc[-1]!r} cpu {hh[-1]!r} rel "
+          f"{rel_final:.3e} (limit 1e-6); first step rel {rel_first:.3e} (limit 1e-10); wall card "
+          f"{card.wall_s:.3f} s ({1e3 * card.wall_s / 150:.1f} ms a step), cpu {host.wall_s:.3f} s "
+          f"({smi})")
+    require(rel_final <= 1e-6, f"simm2 p53 final loss card vs cpu: {rel_final}")
+    require(rel_first <= 1e-10, f"simm2 p53 first step card vs cpu: {rel_first}")
+    require(lat.mean.shape == (100,) and bool(torch.isfinite(lat.mean).all()
+                                              and torch.isfinite(lat.cov).all()),
+            "simm2 p53 latent force not finite")
+
+    # Host syncs of the training loop per step (the guard reads each step's
+    # loss and gradient on the host).
+    dev = torch.device("cuda")
+    data = P53Data(replicate=0, source="synthetic", seed=0)
+    X, y, _ = train_arrays(data, dev, torch.float64)
+    model = simm2.SecondOrderSIMM(num_genes=5, jitter=cfg.EXACT_JITTER)
+    raw = simm2.unconstrain(simm2.init_params(5, dtype=torch.float64, device=dev))
+    _, syncs = count_syncs(lambda: generic.fit_loop(
+        lambda r: -model.mll(simm2.constrain(r), X, y), raw, num_iters=3))
+    print(f"[simm2 p53] host syncs per training step {syncs / 3:.1f} ({smi})")
+    shutil.rmtree(tmp)
+    return dict(wall_s=card.wall_s, final=hc[-1])
+
+
+def dense_simm2(drive, smi):
+    """``[dense simm2]``: ``main.run_dense --model simm2`` (cholesky
+    engine) at dense10k's full width (50 x 200, N = 1e4), float32,
+    DENSE_STEPS steps: the table Gram, cuSOLVER, the MLL's backward with K3
+    (once a step); step ms (median of steps 2-10, interquartile spread),
+    peak memory, whether every loss is finite, the alpha/omega recovery;
+    the first step against float64 (rel 1e-4) and against the plain SYRK
+    (``kernels=False``: loss rel 1e-5, raw-gradient cosine >= 0.999); stage
+    ms at the init point."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.models import simm2
+    from dis_project_tpu_torch.ops import cuda_cholesky as cc
+    from dis_project_tpu_torch.ops import lfm_kernels2 as lfk2
+    from dis_project_tpu_torch.ops import mll as mll_ops
+    from dis_project_tpu_torch.training import generic
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    G, T, steps = DENSE_GENES, DENSE_TIMEPOINTS, DENSE_STEPS
+    held = {}
+
+    def run():
+        torch.cuda.reset_peak_memory_stats(dev)
+        held["bytes"] = torch.cuda.memory_allocated(dev)
+        return port_main.run_dense(cfg.RunConfig(
+            preset="dense10k", model="simm2", synth_genes=G, synth_timepoints=T,
+            num_iters=steps, x64=False, device="cuda"))
+
+    counts = {}
+
+    def counted():
+        out = run()
+        counts.update(cc.LAUNCHES)
+        return out
+
+    dense = drive("dense simm2", counted, ("syrk_ltl_tril",))
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["bytes"]) / 2**30
+    k3_per_step = counts["syrk_ltl_tril"] / steps
+    hist = dense.result.history.tolist()
+    finite = all(math.isfinite(v) for v in hist)
+    step_ms = [1e3 * t for t in dense.step_seconds]
+    median = statistics.median(step_ms[1:])
+    q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
+    _, _, a_true, w_true = dense.data.params_ground_truth()
+    corr_a = _corr(dense.result.params.alpha, a_true)
+    corr_w = _corr(dense.result.params.omega, w_true)
+    print(f"[dense simm2] N={G * T} f32 losses {hist}; all {steps} finite: {finite}; recovery "
+          f"corr(alpha) {corr_a:.4f} corr(omega) {corr_w:.4f} ({smi})")
+    print(f"[dense simm2] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) "
+          f"{median:.3f}, spread (interquartile) {q3 - q1:.3f}; peak memory {peak_gib:.3f} GiB "
+          f"(above the {held['bytes'] / 2**30:.3f} GiB held before the run); K3 launches per "
+          f"step {k3_per_step:g} ({smi})")
+    require(k3_per_step == 1, f"dense simm2: K3 launched {k3_per_step} times a step")
+
+    # The first step at the init point: float32 with K3 against float64 and
+    # against the plain SYRK, on the run's own data.
+    y32, t32 = dense.y, dense.data.timepoints
+    raw32 = simm2.unconstrain(simm2.init_params(G, dtype=f32, device=dev))
+    raw64 = type(raw32)(*(r.double() for r in raw32))
+    jitter = dense.model.jitter
+    plain = simm2.SecondOrderSIMM(num_genes=G, jitter=jitter, kernels=False)
+
+    def objective(model, y, t):
+        return lambda r: -model.mll_gridded(simm2.constrain(r), t, y)
+
+    # The float64 grid is made anew: a float32 linspace cast up is uniform
+    # only to float32's rounding, which the table Gram's float64 check sees.
+    t64 = torch.linspace(0.0, float(t32[-1]), T, dtype=torch.float64, device=dev)
+    lk, gk = generic.value_and_grad(objective(dense.model, y32, t32), raw32)
+    lp, gp = generic.value_and_grad(objective(plain, y32, t32), raw32)
+    l64, g64 = generic.value_and_grad(objective(dense.model, y32.double(), t64), raw64)
+    rel64 = abs(float(lk) - float(l64)) / abs(float(l64))
+    relp = abs(float(lk) - float(lp)) / abs(float(lp))
+    cos = _cosine(_flat_grad(gk), _flat_grad(gp))
+    cos64 = _cosine(_flat_grad(gk), _flat_grad(g64))
+    print(f"[dense simm2] first step: loss K3 {float(lk)!r} plain {float(lp)!r} rel {relp:.3e} "
+          f"(limit 1e-5), raw-gradient cosine {cos:.6f} (limit 0.999); f64 {float(l64)!r} rel "
+          f"{rel64:.3e} (limit 1e-4), cosine to f64 {cos64:.6f}; run's step 1 {hist[0]!r} ({smi})")
+    require(relp <= 1e-5, f"dense simm2 first step K3 vs plain: {relp}")
+    require(cos >= 0.999, f"dense simm2 first-step gradient cosine vs plain: {cos}")
+    require(rel64 <= 1e-4, f"dense simm2 first step f32 vs f64: {rel64}")
+    require(abs(float(lk) - hist[0]) <= 1e-5 * abs(hist[0]), "run_dense simm2 step 1 loss")
+    del l64, g64
+
+    # Where one step's device time goes, each stage alone with CUDA events.
+    p0 = simm2.constrain(raw32)
+    leaves = type(p0)(*(v.detach().requires_grad_(True) for v in p0))
+
+    def gram(p):
+        return lfk2.gram_xx2_blocked_fast(t32, p.alpha, p.omega, p.sensitivity, p.lengthscale)
+
+    with torch.no_grad():
+        K = gram(p0)
+        sigma = mll_ops.add_diagonal(K, jitter + p0.obs_stddev**2)
+        yc = y32 - (p0.basal / simm2.spring(p0)).repeat_interleave(T)
+        L = mll_ops.cholesky(sigma)
+        Li = cc.tri_inv_panels(L).contiguous()
+        dsig = 0.5 * torch.outer(yc, yc) - cc.syrk_ltl_tril_kernel(Li)
+    k_graph = gram(leaves)
+    gram_leaves = (leaves.alpha, leaves.omega, leaves.sensitivity, leaves.lengthscale)
+    stages = {
+        "table Gram forward": lambda: gram(p0),
+        "table Gram backward": lambda: torch.autograd.grad(k_graph, gram_leaves, dsig,
+                                                           retain_graph=True),
+        "cholesky (cuSOLVER)": lambda: mll_ops.cholesky(sigma),
+        "tri_inv_panels (L^-1)": lambda: cc.tri_inv_panels(L).contiguous(),
+        "syrk K3": lambda: cc.syrk_ltl_tril_kernel(Li),
+        "chol_solve": lambda: mll_ops.chol_solve(L, yc),
+    }
+    stage_ms = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    with torch.no_grad():
+        gram(p0)
+    gram_peak = (torch.cuda.max_memory_allocated(dev) - before) / 2**30
+    print(f"[dense simm2] stage ms {json.dumps(stage_ms)}; sum {sum(stage_ms.values()):.3f} vs "
+          f"step median {median:.3f}; the table Gram forward's own peak {gram_peak:.3f} GiB "
+          f"({smi})")
+    del K, sigma, L, Li, dsig, k_graph
+    return dict(median=median, spread=q3 - q1, peak_gib=peak_gib, corr=(corr_a, corr_w),
+                finite=finite, dense=dense)
+
+
+def dense_simm2_ss(drive, base, smi):
+    """``[dense simm2 ss]``: ``main.run_dense --model simm2 --mll-engine ss``
+    on the same data (order 10, m = 110, float32, DENSE_STEPS steps on the
+    schedule ``parallel=None`` picks): step ms and spread, device busy
+    share, host syncs per loss and gradient; the smoothed force from
+    ``lfm2_predict_ss`` on 200 points by union and bridge; float64 parity
+    at the init point against ``SecondOrderSIMM.mll_gridded``: |ss - exact|
+    <= 5e-3 x max(1, |MLL|), raw-gradient cosine >= 0.999."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.models import simm2
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import generic
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    G, T, steps = DENSE_GENES, DENSE_TIMEPOINTS, DENSE_STEPS
+    held = {}
+
+    def run():
+        torch.cuda.reset_peak_memory_stats(dev)
+        held["bytes"] = torch.cuda.memory_allocated(dev)
+        return port_main.run_dense(cfg.RunConfig(
+            preset="dense10k", model="simm2", synth_genes=G, synth_timepoints=T,
+            num_iters=steps, x64=False, device="cuda", mll_engine="ss"))
+
+    dense = drive("dense simm2 ss", run, ())
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["bytes"]) / 2**30
+    hist = dense.result.history.tolist()
+    step_ms = [1e3 * t for t in dense.step_seconds]
+    median = statistics.median(step_ms[1:])
+    q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
+    vg_us = [1e6 * st["value_and_grad_host_s"] / T for st in dense.ss_stats]
+    pick = _schedule_name(ss._select_schedule(None, T, dev)[0])
+    _, _, a_true, w_true = dense.data.params_ground_truth()
+    corr_a = _corr(dense.result.params.alpha, a_true)
+    corr_w = _corr(dense.result.params.omega, w_true)
+    m_dim = 10 + 2 * G
+    print(f"[dense simm2 ss] N={G * T} m={m_dim} f32 losses {hist}; recovery corr(alpha) "
+          f"{corr_a:.4f} corr(omega) {corr_w:.4f}; loss vs the cholesky route's step 1 "
+          f"{base['dense'].result.history[0].item()!r} ({smi})")
+    print(f"[dense simm2 ss] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) "
+          f"{median:.3f}, spread (interquartile) {q3 - q1:.3f}; schedule (parallel=None) {pick}; "
+          f"host us per filter step, loss and gradient {[round(u, 1) for u in vg_us]}; peak "
+          f"memory {peak_gib:.3f} GiB ({smi})")
+    require(all(math.isfinite(v) for v in hist), "dense simm2 ss losses not finite")
+
+    y32, t32 = dense.y, dense.data.timepoints
+    raw32 = simm2.unconstrain(simm2.init_params(G, dtype=f32, device=dev))
+
+    def objective(y, t):
+        return lambda r: -ss.lfm2_mll_ss(simm2.constrain(r), t, y, jitter=cfg.EXACT_JITTER)
+
+    _, syncs = count_syncs(lambda: generic.value_and_grad(objective(y32, t32), raw32))
+    busy = device_busy_ms(lambda: generic.value_and_grad(objective(y32, t32), raw32))
+    share = "not measured (no device time in the trace)" if busy is None else \
+        f"{busy:.3f} ms busy in one value and gradient, {busy / median:.3f} of the step median"
+    print(f"[dense simm2 ss] host syncs per loss and gradient {syncs}; device {share} ({smi})")
+
+    # The smoothed force on 200 points, both interpolations, at the trained
+    # parameters.
+    params = dense.result.params
+    grid = torch.linspace(float(t32[0]), float(t32[-1]) * 13.0 / 12.0, 200, dtype=f32,
+                          device=dev)
+    nv = dense.var.reshape(G, T).T + cfg.EXACT_JITTER
+    force = {}
+    for interp in ("union", "bridge"):
+        ms = cuda_ms(lambda: ss.lfm2_predict_ss(params, t32, y32, grid, noise_var=nv,
+                                                interp=interp), reps=3, warmup=1)
+        force[interp] = ss.lfm2_predict_ss(params, t32, y32, grid, noise_var=nv, interp=interp)
+        fm, fv = force[interp][0], force[interp][1]
+        require(bool(torch.isfinite(fm).all() and torch.isfinite(fv).all()),
+                f"dense simm2 ss smoothed force ({interp}) not finite")
+        print(f"[dense simm2 ss] smoothed force {interp}, 200 points: {ms:.3f} ms; variance "
+              f"min {float(fv.min()):.3e} ({smi})")
+    diffs = {f32: [float((a - b).abs().max()) for a, b in zip(force["union"][:2],
+                                                              force["bridge"][:2])]}
+    # float64: the [ss predict] limits of the first-order route (1e-5 on the
+    # means, 1e-6 on the variances; the JAX package's own union and bridge
+    # differ by up to ~2e-6). float32 is reported: the pseudo-solve's eigh
+    # at m = 110 sets it.
+    p64 = type(params)(*(x.double() for x in params))
+    t64 = torch.linspace(0.0, float(t32[-1]), T, dtype=torch.float64, device=dev)
+    args64 = (p64, t64, y32.double(), grid.double())
+    u64 = ss.lfm2_predict_ss(*args64, noise_var=nv.double())
+    b64 = ss.lfm2_predict_ss(*args64, noise_var=nv.double(), interp="bridge")
+    diffs[torch.float64] = [float((a - b).abs().max()) for a, b in zip(u64[:2], b64[:2])]
+    f_at_train = ss.lfm2_predict_ss(p64, t64, y32.double(), t64, noise_var=nv.double(),
+                                    interp="bridge")[0]
+    corr_f = _corr(f_at_train, dense.data.f_true)
+    print(f"[dense simm2 ss] bridge vs union max |diff| (f_mean, f_var): f64 "
+          f"{diffs[torch.float64]} (limits 1e-5, 1e-6), f32 {diffs[f32]}; smoothed force "
+          f"(f64, bridge, training grid) corr with the generating force {corr_f:.4f} ({smi})")
+    require(diffs[torch.float64][0] <= 1e-5 and diffs[torch.float64][1] <= 1e-6,
+            f"dense simm2 ss bridge vs union f64: {diffs[torch.float64]}")
+
+    # float64 parity at the init point with the exact MLL on the same data.
+    model = simm2.SecondOrderSIMM(num_genes=G, jitter=cfg.EXACT_JITTER)
+    y64 = y32.double()
+    raw64 = type(raw32)(*(r.double() for r in raw32))
+    le, ge = generic.value_and_grad(
+        lambda r: model.mll_gridded(simm2.constrain(r), t64, y64), raw64)
+    ls, gs = generic.value_and_grad(
+        lambda r: ss.lfm2_mll_ss(simm2.constrain(r), t64, y64, jitter=cfg.EXACT_JITTER), raw64)
+    rel = abs(float(ls) - float(le)) / max(1.0, abs(float(le)))
+    cos = _cosine(_flat_grad(gs), _flat_grad(ge))
+    print(f"[dense simm2 ss] f64 parity at init: exact {float(le)!r} ss {float(ls)!r}, "
+          f"|diff| / max(1, |MLL|) {rel:.3e} (limit 5e-3); raw-gradient cosine {cos:.6f} "
+          f"(limit 0.999) ({smi})")
+    require(rel <= 5e-3, f"dense simm2 ss parity: {rel}")
+    require(cos >= 0.999, f"dense simm2 ss parity gradient cosine {cos}")
+    return dict(median=median, spread=q3 - q1, peak_gib=peak_gib, corr=(corr_a, corr_w),
+                syncs=syncs, busy=busy)
+
+
+def simm2_phases(drive, smi):
+    """The second-order family's phases; prints their total wall seconds."""
+    t0 = time.perf_counter()
+    simm2_erf(smi)
+    p53 = simm2_p53(drive, smi)
+    chol = dense_simm2(drive, smi)
+    ssr = dense_simm2_ss(drive, chol, smi)
+    print(f"[simm2] dense10k step median: cholesky {chol['median']:.3f} ms (spread "
+          f"{chol['spread']:.3f}, {chol['peak_gib']:.3f} GiB, all finite {chol['finite']}), ss "
+          f"{ssr['median']:.3f} ms (spread {ssr['spread']:.3f}); p53 150 steps "
+          f"{p53['wall_s']:.3f} s ({smi})")
+    print(f"[simm2 phases] erf, p53, dense cholesky and dense ss took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -2387,6 +2783,7 @@ def main():
           f"{ssr['corr'][1]:.4f}), cg {cg['median']:.3f} ms, xla {steady_xla:.3f} ms; ss / xla "
           f"{ssr['median'] / steady_xla:.3f} ({smi})")
     ss_engine_phases(drive, ssr["dense"], smi)
+    simm2_phases(drive, smi)
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():

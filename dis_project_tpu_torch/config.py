@@ -17,6 +17,10 @@ NOT_PORTED_PRESETS = ("sparse100k",)
 PORTED_ENGINES = ("cholesky", "cg", "ss")
 NOT_PORTED_ENGINES = ("dist",)
 FORCE_KERNELS = ("rbf", "matern12", "matern32", "matern52")
+# Model families: the first-order and second-order exact families run; the
+# JAX package's other three are named and refused.
+PORTED_MODELS = ("simm", "simm2")
+NOT_PORTED_MODELS = ("multisimm", "nlfm", "delaysimm")
 
 # Exact-path jitter (reference src/main.py:41).
 EXACT_JITTER = 1e-4
@@ -29,6 +33,8 @@ class RunConfig:
     # alfi-parity — the port against the independent torch validation stack;
     # dense10k — synthetic genes x timepoints exact-GP stress run.
     preset: str = "p53"
+    # model family: simm (first-order exact) | simm2 (second-order exact)
+    model: str = "simm"
     # data
     replicate: Optional[int] = 0  # None = all three replicates
     selected_genes: Optional[Sequence[str]] = None
@@ -84,6 +90,11 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
                         "alfi-parity (the torch validation stack's gates) or "
                         "dense10k (N = genes x timepoints exact stress run); "
                         "sparse100k is not yet ported")
+    parser.add_argument("--model", default=d.model,
+                        choices=PORTED_MODELS + NOT_PORTED_MODELS,
+                        help="model family: 'simm' (first-order exact) or 'simm2' "
+                        "(second-order spring-damper exact); multisimm, nlfm and "
+                        "delaysimm are not yet ported")
     parser.add_argument("--replicate", type=str, default="0",
                         help="replicate index 0-2, or 'all'")
     parser.add_argument("--genes", type=str, default=None,
@@ -144,6 +155,7 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
 def config_from_args(args: argparse.Namespace) -> RunConfig:
     return RunConfig(
         preset=args.preset,
+        model=args.model,
         replicate=None if args.replicate == "all" else int(args.replicate),
         selected_genes=args.genes.split(",") if args.genes else None,
         data_dir=args.data_dir,

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from dis_project_tpu_torch.models.simm import SIMMParams
+from dis_project_tpu_torch.models.simm2 import SIMM2Params
 from dis_project_tpu_torch.ops.precision import PARITY_DTYPE, default_device
 
 
@@ -22,6 +23,16 @@ def params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE) -> SIMMParams:
     return SIMMParams(**{
         name: torch.as_tensor(np.array(mapping[name]), dtype=dtype, device=dev)
         for name in SIMMParams._fields
+    })
+
+
+def simm2_params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE) -> SIMM2Params:
+    """:class:`SIMM2Params` (the second-order family) from a mapping with its
+    six field names (e.g. ``jax_params._asdict()``); values are array-likes."""
+    dev = default_device(device)
+    return SIMM2Params(**{
+        name: torch.as_tensor(np.array(mapping[name]), dtype=dtype, device=dev)
+        for name in SIMM2Params._fields
     })
 
 

@@ -34,6 +34,15 @@ says otherwise:
   latent force on a 200-point grid (``lfm_predict_ss``); its plot
   ``lf_dense_ss_lf.png`` is :func:`dense_ss_report`'s, drawn where
   matplotlib is installed.
+- ``--model simm2`` (the second-order spring-damper family,
+  ``models.simm2``): on the default preset :func:`run_second_order` (p53
+  data, ``SecondOrderSIMM.mll`` with ``training.generic.fit_loop`` or
+  ``fit_checkpointed``, the kinetics table with damping and spring, the
+  latent force on a 100-point grid and its plot); with ``--preset
+  dense10k`` :func:`run_dense_second_order` (quadrature-generated order-2
+  data, ``--mll-engine cholesky``: ``mll_gridded``, the table Gram, then
+  the MLL with K3 in its backward on the card in float32; ``--mll-engine
+  ss``: ``ops.statespace.lfm2_mll_ss``; Adam; alpha/omega recovery).
 
 Every other preset, engine, model family and flag of the JAX CLI fails with
 "not yet ported".
@@ -87,6 +96,10 @@ class DenseRun:
     lf_grid: Optional[torch.Tensor] = None
     lf_mean: Optional[torch.Tensor] = None
     lf_var: Optional[torch.Tensor] = None
+
+
+def _have_matplotlib() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def _final_loss(hist) -> float:
@@ -404,18 +417,58 @@ def fit_cg(model, raw0, X, y, num_iters: int, learning_rate: float, probes_for_s
     return raw, opt_state, losses, stats, step_seconds
 
 
+def fit_dense_adam(objective, raw, num_iters: int, learning_rate: float, ss_stats=None,
+                   forward_s=None):
+    """The dense routes' training loop: Adam on ``objective(raw)``, a host
+    fetch of each step's loss (the step's end). Returns ``(raw, opt_state,
+    losses, norms, step_seconds)``. With ``ss_stats`` (a list) it appends
+    each step's host seconds of the loss (the last entry of ``forward_s``,
+    which the objective appends to) and of the value and gradient."""
+    from dis_project_tpu_torch.training import generic
+
+    optimizer = generic.Adam(learning_rate)
+    opt_state = optimizer.init(raw)
+    losses, norms, step_seconds = [], [], []
+    for _ in range(num_iters):
+        ts = time.perf_counter()
+        loss, grads = generic.value_and_grad(objective, raw)
+        vg_s = time.perf_counter() - ts
+        updates, opt_state = optimizer.update(grads, opt_state)
+        raw = generic.apply_updates(raw, updates)
+        losses.append(float(loss))  # host fetch: the step has finished
+        norms.append(float(generic.global_norm(grads)))
+        step_seconds.append(time.perf_counter() - ts)
+        if ss_stats is not None:
+            ss_stats.append({"forward_host_s": forward_s[-1], "value_and_grad_host_s": vg_s})
+    return raw, opt_state, losses, norms, step_seconds
+
+
+def print_ss_step(ss_stats, step_seconds, T: int) -> None:
+    """The ss routes' "State-space step" line: the loop enqueues without a
+    sync, so on the card its host time per filter step, beside the step's
+    wall, says who sets the pace."""
+    fwd_us = statistics.median(1e6 * st["forward_host_s"] / T for st in ss_stats)
+    vg_us = statistics.median(1e6 * st["value_and_grad_host_s"] / T for st in ss_stats)
+    step_ms = statistics.median(1e3 * t for t in step_seconds)
+    print(f"State-space step: median {step_ms:.3f} ms; host us per filter step "
+          f"{fwd_us:.1f} (loss) / {vg_us:.1f} (loss and gradient); host share of the "
+          f"step {vg_us * T / (1e3 * step_ms):.3f}")
+
+
 def run_dense(config: cfg.RunConfig) -> DenseRun:
     """Dense exact-GP stress run: synthetic first-order data at
     N = genes x timepoints, full-batch training through the engine of
-    ``--mll-engine``, and ground-truth kinetics recovery."""
+    ``--mll-engine``, and ground-truth kinetics recovery
+    (``--model simm2``: :func:`run_dense_second_order`)."""
     from dis_project_tpu_torch.data.dataset import train_arrays
     from dis_project_tpu_torch.models import simm
     from dis_project_tpu_torch.ops import iterative
     from dis_project_tpu_torch.ops import statespace as ss_ops
     from dis_project_tpu_torch.ops.precision import default_device, dtype_for
-    from dis_project_tpu_torch.training import generic
     from dis_project_tpu_torch.training import trainer as tr
 
+    if config.model == "simm2":
+        return run_dense_second_order(config)
     dev = default_device(config.device)
     dtype = dtype_for(config.x64)
     G, T = config.synth_genes, config.synth_timepoints
@@ -445,6 +498,7 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
               f"iteration {[round(u, 1) for u in us]}")
     else:
         timepoints = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
+        forward_s = None
         if config.mll_engine == "ss":
             print(f"Training (full-batch exact MLL, {ss_engine(config)})...")
             ss_stats, forward_s = [], []
@@ -467,31 +521,12 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
                     return -model.mll(simm.constrain(r), X, y)
                 return -model.mll_gridded(simm.constrain(r), timepoints, y)
 
-        optimizer = generic.Adam(config.learning_rate)
-        opt_state = optimizer.init(raw)
-        losses, norms, step_seconds = [], [], []
-        for _ in range(config.num_iters):
-            ts = time.perf_counter()
-            loss, grads = generic.value_and_grad(objective, raw)
-            vg_s = time.perf_counter() - ts
-            updates, opt_state = optimizer.update(grads, opt_state)
-            raw = generic.apply_updates(raw, updates)
-            losses.append(float(loss))  # host fetch: the step has finished
-            norms.append(float(generic.global_norm(grads)))
-            step_seconds.append(time.perf_counter() - ts)
-            if ss_stats is not None:
-                ss_stats.append({"forward_host_s": forward_s[-1], "value_and_grad_host_s": vg_s})
+        raw, opt_state, losses, norms, step_seconds = fit_dense_adam(
+            objective, raw, config.num_iters, config.learning_rate, ss_stats, forward_s)
         params = simm.constrain(raw)
         final = _final_loss(losses)
         if ss_stats:
-            # The loop enqueues without a sync: on the card its host time
-            # per filter step, beside the step's wall, says who sets the pace.
-            fwd_us = statistics.median(1e6 * st["forward_host_s"] / T for st in ss_stats)
-            vg_us = statistics.median(1e6 * st["value_and_grad_host_s"] / T for st in ss_stats)
-            step_ms = statistics.median(1e3 * t for t in step_seconds)
-            print(f"State-space step: median {step_ms:.3f} ms; host us per filter step "
-                  f"{fwd_us:.1f} (loss) / {vg_us:.1f} (loss and gradient); host share of the "
-                  f"step {vg_us * T / (1e3 * step_ms):.3f}")
+            print_ss_step(ss_stats, step_seconds, T)
     wall = time.perf_counter() - t0
     res = tr.TrainResult(
         params=params,
@@ -538,7 +573,7 @@ def dense_ss_report(config: cfg.RunConfig, out: DenseRun) -> None:
     """The state-space route's host work: the smoothed latent force against
     the generating force (``lf_dense_ss_lf.png``), where matplotlib is
     installed."""
-    if importlib.util.find_spec("matplotlib") is None:
+    if not _have_matplotlib():
         print("matplotlib is not installed: the smoothed latent-force plot is not drawn")
         return
     from dis_project_tpu_torch.models.base import Gaussian
@@ -551,8 +586,185 @@ def dense_ss_report(config: cfg.RunConfig, out: DenseRun) -> None:
     print(f"Smoothed latent-force plot saved under {config.out_dir}/")
 
 
+@dataclasses.dataclass
+class SecondOrderRun:
+    result: Any  # training.generic.LoopResult
+    latent: Any  # models.base.Gaussian over the 100-point latent grid
+    data: Any  # data.dataset.P53Data
+    t_grid: torch.Tensor
+    wall_s: float  # the fit's wall seconds
+
+
+def _check_route_flags(config: cfg.RunConfig, route: str, rejected) -> None:
+    """A family route's refusal of flags it does not implement, with the
+    JAX package's message."""
+    for flag, name in rejected:
+        if flag:
+            raise SystemExit(f"{name} is not supported by the --model {route} route")
+
+
+def run_second_order(config: cfg.RunConfig) -> SecondOrderRun:
+    """The second-order (spring-damper) LFM on the p53 data, the
+    ``--model simm2`` route: ``SecondOrderSIMM.mll`` on the training rows,
+    ``training.generic.fit_loop`` (or ``fit_checkpointed`` under
+    ``--checkpoint-dir``), the metrics JSONL, the kinetics table with
+    damping and spring, the latent force on ``latent_grid(100)``; with
+    matplotlib, the parameter trace (``--track-parameters``) and the
+    latent-force plot."""
+    from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
+    from dis_project_tpu_torch.models import simm2
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.training import generic
+    from dis_project_tpu_torch.utils.test_grids import latent_grid
+
+    # The second-order kernels have no p21-style clamp: the toggle means
+    # nothing here.
+    _check_route_flags(config, "simm2", ((not config.fix_params, "--no-fix-params"),))
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    data = P53Data(replicate=config.replicate, data_dir=config.data_dir,
+                   selected_genes=config.selected_genes, source=config.data_source,
+                   seed=config.seed)
+    X, y, var = train_arrays(data, dev, dtype)
+    model = simm2.SecondOrderSIMM(num_genes=data.num_genes, jitter=config.exact_jitter)
+    raw = simm2.unconstrain(simm2.init_params(data.num_genes, dtype=dtype, device=dev))
+
+    def loss(r):
+        return -model.mll(simm2.constrain(r), X, y)
+
+    print(f"Training second-order LFM on {dev} ({dtype})...")
+    t0 = time.perf_counter()
+    loop_kw = dict(num_iters=config.num_iters, learning_rate=config.learning_rate,
+                   optimizer=config.optimizer, constrain_fn=simm2.constrain,
+                   track_parameters=config.track_parameters)
+    if config.checkpoint_dir:
+        result = generic.fit_checkpointed(loss, raw, directory=config.checkpoint_dir,
+                                          resume=config.resume, **loop_kw)
+    else:
+        result = generic.fit_loop(loss, raw, **loop_kw)
+    final = _final_loss(result.history)
+    wall = time.perf_counter() - t0
+    print(f"Trained {config.num_iters} iters in {wall:.2f}s (final loss {final:.6f})")
+    if config.metrics_path:
+        write_metrics(config.metrics_path, result)
+        print(f"Metrics written to {config.metrics_path}")
+    plots = _have_matplotlib()
+    trace = result.param_trace
+    if config.track_parameters and trace is not None and plots:
+        from dis_project_tpu_torch.reporting import plotter
+
+        plotter.plot_param_trace({"basal": trace.basal, "sensitivity": trace.sensitivity,
+                                  "alpha": trace.alpha, "omega": trace.omega},
+                                 data.gene_names, save_name=config.save_name or "simm2",
+                                 out_dir=config.out_dir)
+        print("Parameter trace plotted")
+
+    params = result.params
+    damping, spring = simm2.damping(params), simm2.spring(params)
+    print("\nGene       Basal     Sensitivity  Alpha     Omega     Damping   Spring")
+    for i, g in enumerate(data.gene_names):
+        print(f"{g:<10} {float(params.basal[i]):<9.4f} {float(params.sensitivity[i]):<12.4f} "
+              f"{float(params.alpha[i]):<9.4f} {float(params.omega[i]):<9.4f} "
+              f"{float(damping[i]):<9.4f} {float(spring[i]):<9.4f}")
+
+    t_grid = latent_grid(100, dtype=dtype, device=dev)
+    with torch.no_grad():
+        latent = model.latent_predict(params, t_grid, X, y, var)
+    if plots:
+        from dis_project_tpu_torch.reporting import plotter
+
+        plotter.plot_lf(t_grid, latent, y_scatter=data.f_observed,
+                        scatter_times=data.timepoints,
+                        save_name=config.save_name or "simm2", out_dir=config.out_dir)
+        print(f"Latent-force plot saved under {config.out_dir}/")
+    else:
+        print("matplotlib is not installed: the latent-force plot is not drawn")
+    return SecondOrderRun(result, latent, data, t_grid, wall)
+
+
+def synthetic_ode2_data(genes: int, timepoints: int, seed: int, dtype, device):
+    """The dense second-order route's dataset: ``generate_ode2`` at
+    genes x timepoints, one replicate, noise std 0.1, oversample 4, from
+    ``seed``."""
+    from dis_project_tpu_torch.data import synthetic
+
+    scfg = synthetic.SyntheticConfig(
+        num_genes=genes, num_timepoints=timepoints, num_replicates=1, noise_std=0.1
+    )
+    return synthetic.generate_ode2(torch.Generator().manual_seed(seed), scfg, oversample=4,
+                                   dtype=dtype, device=device)
+
+
+def run_dense_second_order(config: cfg.RunConfig) -> DenseRun:
+    """Dense exact second-order run: full-batch MLL on quadrature-generated
+    spring-damper data at N = genes x timepoints, Adam, and the alpha/omega
+    recovery correlations. ``--mll-engine cholesky``: the table Gram
+    (``SecondOrderSIMM.mll_gridded``), cuSOLVER's factor and the MLL's
+    custom backward (K3 on the card in float32 above N = 2048);
+    ``--mll-engine ss``: ``ops.statespace.lfm2_mll_ss`` (order-10 SDE or an
+    exact Matern force prior, ``--stationary-after``). The JAX package cuts
+    this fit into 25-step device programs for its remote-TPU transport; the
+    history is the same without the cut."""
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import simm2
+    from dis_project_tpu_torch.ops import statespace as ss_ops
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.training import generic
+
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    G, T = config.synth_genes, config.synth_timepoints
+    print(f"Sampling synthetic order-2 ODE dataset: {G} x {T} (N={G * T}) on {dev}...")
+    data = synthetic_ode2_data(G, T, config.seed, dtype, dev)
+    X, y, var = train_arrays(data, dev, dtype)
+    model = simm2.SecondOrderSIMM(num_genes=G, jitter=config.exact_jitter)
+    raw = simm2.unconstrain(simm2.init_params(G, dtype=dtype, device=dev))
+    tgrid = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
+
+    ss_stats = forward_s = None
+    if config.mll_engine == "ss":
+        engine = ss_engine(config)
+        ss_stats, forward_s = [], []
+
+        def objective(r):
+            ts = time.perf_counter()
+            loss = -ss_ops.lfm2_mll_ss(
+                simm2.constrain(r), tgrid, y, jitter=config.exact_jitter,
+                force_kernel=config.force_kernel, stationary_after=config.stationary_after)
+            forward_s.append(time.perf_counter() - ts)
+            return loss
+    else:
+        engine = "order-2 table Gram, Cholesky engine"
+
+        def objective(r):
+            return -model.mll_gridded(simm2.constrain(r), tgrid, y)
+
+    print(f"Training (full-batch exact second-order MLL, {engine})...")
+    t0 = time.perf_counter()
+    raw, opt_state, losses, norms, step_seconds = fit_dense_adam(
+        objective, raw, config.num_iters, config.learning_rate, ss_stats, forward_s)
+    if ss_stats:
+        print_ss_step(ss_stats, step_seconds, T)
+    f64 = torch.float64
+    hist = torch.tensor(losses, dtype=f64)
+    print(f"Trained {config.num_iters} iters in {time.perf_counter() - t0:.2f}s "
+          f"(final loss {_final_loss(losses):.4f}, N={G * T})")
+    params = simm2.constrain(raw)
+    res = generic.LoopResult(raw=raw, params=params, history=hist,
+                             grad_norms=torch.tensor(norms, dtype=f64), opt_state=opt_state)
+    _, _, a_true, w_true = data.params_ground_truth()
+    corr_a = float(np.corrcoef(params.alpha.detach().cpu().numpy(), a_true)[0, 1])
+    corr_w = float(np.corrcoef(params.omega.detach().cpu().numpy(), w_true)[0, 1])
+    print(f"Ground-truth recovery: corr(alpha)={corr_a:.3f} corr(omega)={corr_w:.3f}")
+    if config.metrics_path:
+        write_dense_metrics(config.metrics_path, hist)
+    return DenseRun(res, model, data, X, y, var, step_seconds, final_loss=_final_loss(losses),
+                    ss_stats=ss_stats)
+
+
 PORTED_FLAGS = (
-    "--preset p53|p53-replicates|alfi-parity|dense10k, --mll-engine cholesky|cg|ss, "
+    "--preset p53|p53-replicates|alfi-parity|dense10k, --model simm|simm2, "
+    "--mll-engine cholesky|cg|ss, "
     "--force-kernel, --stationary-after, "
     "--replicate, --genes, --data-dir, --data-source, --seed, --synth-genes, "
     "--synth-timepoints, --jitter, --num-iters, --learning-rate, --optimizer, "
@@ -592,6 +804,43 @@ def check_ss_flags(config: cfg.RunConfig) -> None:
         )
 
 
+def check_model_flags(config: cfg.RunConfig) -> None:
+    """The JAX package's guards of the model families, engines and the
+    posterior flag, with its messages (dis_project_tpu/main.py:2095-2222),
+    for the families the port runs; then :func:`check_ss_flags`."""
+    if config.model == "simm2" and config.preset in ("alfi-parity", "p53-replicates"):
+        raise SystemExit(
+            f"--model simm2 is not supported with --preset {config.preset} "
+            "(second-order routes: the default preset, dense10k, sparse100k)"
+        )
+    if config.mll_engine != "cholesky":
+        # The first-order dense route takes every engine; the second-order
+        # dense route the state-space engine only.
+        engine_ok = config.preset == "dense10k" and (
+            config.model == "simm" or config.mll_engine == "ss"
+        )
+        if not engine_ok:
+            raise SystemExit(
+                f"--mll-engine {config.mll_engine} is only supported by "
+                "the dense10k routes (--model simm: any engine; simm2/"
+                "multisimm/delaysimm: --mll-engine ss only)"
+            )
+    check_ss_flags(config)
+    dense_ss_posterior = (config.preset == "dense10k" and config.mll_engine == "ss"
+                          and config.model == "simm")
+    if config.posterior_samples and (
+        (config.preset in ("alfi-parity", "dense10k", "sparse100k") and not dense_ss_posterior)
+        or config.model == "simm2"
+    ):
+        raise SystemExit(
+            "--posterior-samples is only supported on the exact "
+            "first-order p53 routes (the default preset, and "
+            "--preset p53-replicates without --ensemble), the "
+            "nlfm route, and --preset dense10k --mll-engine ss "
+            "(the O(T) state-space likelihood)"
+        )
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__, allow_abbrev=False)
     cfg.add_cli_args(parser)
@@ -600,16 +849,15 @@ def main(argv=None):
         raise SystemExit(f"{' '.join(unknown)}: not yet ported to dis_project_tpu_torch "
                          f"(ported flags: {PORTED_FLAGS})")
     config = cfg.config_from_args(args)
+    if config.model in cfg.NOT_PORTED_MODELS:
+        raise SystemExit(f"--model {config.model} is not yet ported")
+    check_model_flags(config)
     if config.preset in cfg.NOT_PORTED_PRESETS:
         raise SystemExit(f"--preset {config.preset} is not yet ported")
     if config.mll_engine in cfg.NOT_PORTED_ENGINES:
         raise SystemExit(f"--mll-engine {config.mll_engine} is not yet ported")
-    if config.mll_engine != "cholesky" and config.preset != "dense10k":
-        raise SystemExit(f"--mll-engine {config.mll_engine} is only supported by the "
-                         "dense10k route")
     if config.resume and not config.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
-    check_ss_flags(config)
     if config.ss_shard:
         raise SystemExit("--ss-shard (the temporally-sharded filter) is not yet ported")
     if config.posterior_samples:
@@ -618,9 +866,11 @@ def main(argv=None):
         return run_alfi_parity(config)
     if config.preset == "dense10k":
         out = run_dense(config)
-        if config.mll_engine == "ss":
+        if config.mll_engine == "ss" and config.model == "simm":
             dense_ss_report(config, out)
         return out
+    if config.model == "simm2":
+        return run_second_order(config)
     if config.preset == "p53-replicates":
         config.replicate = None
     return run(config)

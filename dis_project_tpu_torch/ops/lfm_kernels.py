@@ -12,10 +12,12 @@ Behavioral contract, kept from the reference:
 - ``k_xx`` is eq. 5, ``S_j S_k (sqrt(pi) l / 2) [h(k,j,t',t) + h(j,k,t,t')]``.
 - ``k_xf`` is eq. 6.
 
-``erf`` is ``torch.erf`` (the true erf). The JAX package's Pallas path used
-an Abramowitz & Stegun approximation only because erf does not lower in
-Mosaic; the CUDA kernels of this port call CUDA's own ``erf``/``erff``.
-Every function broadcasts.
+``erf`` is ``torch.erf`` (the true erf) unless ``erf_fn=`` names another:
+the second-order family (``ops.lfm_kernels2``) evaluates these same forms
+at complex decay rates with ``ops.special.erf_complex``. The JAX package's
+Pallas path used an Abramowitz & Stegun approximation only because erf does
+not lower in Mosaic; the CUDA kernels of this port call CUDA's own
+``erf``/``erff``. Every function broadcasts.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def gamma(decay, lengthscale):
     return decay * lengthscale * 0.5
 
 
-def h_term(d_a, d_b, t1, t2, lengthscale):
+def h_term(d_a, d_b, t1, t2, lengthscale, erf_fn=torch.erf):
     r"""The analytic double-integral term h(a, b, t1, t2), with
     :math:`\gamma_b = D_b l / 2`:
 
@@ -45,24 +47,24 @@ def h_term(d_a, d_b, t1, t2, lengthscale):
     t_dist = t2 - t1
     mult = torch.exp(g_b * g_b) / (d_a + d_b)
     first = torch.exp(-d_b * t_dist) * (
-        torch.erf(t_dist / lengthscale - g_b) + torch.erf(t1 / lengthscale + g_b)
+        erf_fn(t_dist / lengthscale - g_b) + erf_fn(t1 / lengthscale + g_b)
     )
     second = torch.exp(-(d_b * t2 + d_a * t1)) * (
-        torch.erf(t2 / lengthscale - g_b) + torch.erf(g_b)
+        erf_fn(t2 / lengthscale - g_b) + erf_fn(g_b)
     )
     return mult * (first - second)
 
 
-def k_xx(t, t_prime, d_j, d_k, s_j, s_k, lengthscale):
+def k_xx(t, t_prime, d_j, d_k, s_j, s_k, lengthscale, erf_fn=torch.erf):
     """Gene-gene covariance k_{x_j x_k}(t, t') — eq. 5."""
     mult = s_j * s_k * lengthscale * (0.5 * SQRT_PI)
     return mult * (
-        h_term(d_k, d_j, t_prime, t, lengthscale)
-        + h_term(d_j, d_k, t, t_prime, lengthscale)
+        h_term(d_k, d_j, t_prime, t, lengthscale, erf_fn)
+        + h_term(d_j, d_k, t, t_prime, lengthscale, erf_fn)
     )
 
 
-def k_xf(t_x, t_f, d_j, s_j, lengthscale):
+def k_xf(t_x, t_f, d_j, s_j, lengthscale, erf_fn=torch.erf):
     """Gene-force cross-covariance k_{x_j f}(t_x, t_f) — eq. 6."""
     g_j = gamma(d_j, lengthscale)
     t_dist = t_x - t_f
@@ -71,7 +73,7 @@ def k_xf(t_x, t_f, d_j, s_j, lengthscale):
         first
         * torch.exp(g_j * g_j)
         * torch.exp(-d_j * t_dist)
-        * (torch.erf(t_dist / lengthscale - g_j) + torch.erf(t_f / lengthscale + g_j))
+        * (erf_fn(t_dist / lengthscale - g_j) + erf_fn(t_f / lengthscale + g_j))
     )
 
 
@@ -79,6 +81,16 @@ def k_ff(t, t_prime, lengthscale):
     """RBF prior over f(t) with the reference's ``2*l`` denominator."""
     sq = torch.square(t - t_prime)
     return torch.exp(-sq / (2.0 * lengthscale))
+
+
+def k_ff_consistent(t, t_prime, lengthscale):
+    """RBF force prior in the Lawrence convention, ``exp(-(t-t')^2 / l^2)``:
+    the prior that the closed forms of ``k_xx``/``k_xf`` integrate (their erf
+    arguments are t/l). The reference's ``k_ff`` above divides by ``2*l``
+    instead; families that need a jointly consistent (f, x) covariance (the
+    second-order family) use this one."""
+    sq = torch.square(t - t_prime)
+    return torch.exp(-sq / (lengthscale * lengthscale))
 
 
 # ---------------------------------------------------------------------------
@@ -117,3 +129,8 @@ def k_xf_block(t_x, t_f, decay, sens, lengthscale):
 def k_ff_block(t1, t2, lengthscale):
     """Dense (T1, T2) latent-force prior covariance (reference convention)."""
     return k_ff(t1[:, None], t2[None, :], lengthscale)
+
+
+def k_ff_consistent_block(t1, t2, lengthscale):
+    """Dense (T1, T2) latent-force prior covariance (Lawrence convention)."""
+    return k_ff_consistent(t1[:, None], t2[None, :], lengthscale)

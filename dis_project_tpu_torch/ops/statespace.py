@@ -1,13 +1,15 @@
 r"""State-space (Markovian) LFM engine: O(T) inference for the first-order
-SIMM family by Kalman filtering and RTS smoothing.
+SIMM family and the second-order (spring-damper) family by Kalman filtering
+and RTS smoothing.
 
-Port of the first-order route of ``dis_project_tpu/ops/statespace.py``
-(same function and argument names). The latent force's RBF prior is
-approximated by a balanced order-``p`` linear SDE (or replaced by an exact
-Matern SDE), the gene ODEs ``dx_j/dt = B_j + S_j f - D_j x_j`` are linear
-state evolution, so the augmented state ``z = [f-state (p), x (G)]`` is
-jointly Markov-Gaussian and the MLL of the approximated model is a Kalman
-filter: O(T (p+G)^3) work instead of O((GT)^3).
+Port of the first- and second-order routes of
+``dis_project_tpu/ops/statespace.py`` (same function and argument names).
+The latent force's RBF prior is approximated by a balanced order-``p``
+linear SDE (or replaced by an exact Matern SDE), the gene ODEs
+``dx_j/dt = B_j + S_j f - D_j x_j`` are linear state evolution, so the
+augmented state ``z = [f-state (p), x (G)]`` is jointly Markov-Gaussian and
+the MLL of the approximated model is a Kalman filter: O(T (p+G)^3) work
+instead of O((GT)^3).
 
 - Host constants (:func:`canonical_system`, :func:`matern_canonical_system`):
   numpy/scipy, float64, cached per order and kind.
@@ -30,6 +32,10 @@ filter: O(T (p+G)^3) work instead of O((GT)^3).
   smoothing duals. ``parallel=`` selects the pair (:func:`_select_schedule`).
 - :func:`lfm_mll_ss`: the MLL (uniform grids share one (A, Q); optional
   per-entry ``obs_mask`` and the frozen-gain ``stationary_after`` tail).
+- The second-order family: :func:`build_lfm2_ssm` (state ``[f-state, x,
+  v]``, m = p + 2G; the stationary blocks from batched Lyapunov solves),
+  :func:`lfm2_mll_ss` and :func:`lfm2_predict_ss` on the same filters,
+  schedules and smoothers.
 - :func:`rts_smoother` and :func:`lfm_predict_ss`: smoothed posteriors on
   the union grid or by bridge interpolation, under ``torch.no_grad``.
 - :func:`posterior_sample_ss` (FFBS) and :func:`sample_trajectory_ss`:
@@ -237,6 +243,91 @@ def _symmetrize(p):
     return 0.5 * (p + p.mT)
 
 
+def _osc_matrix(alpha, spring):
+    """(G, 2, 2) oscillator blocks ``[[0, 1], [-k_j, -2 alpha_j]]``."""
+    zero, one = torch.zeros_like(alpha), torch.ones_like(alpha)
+    return torch.stack([torch.stack([zero, one], -1),
+                        torch.stack([-spring, -2.0 * alpha], -1)], -2)
+
+
+def build_lfm2_ssm(alpha, omega, sens, lengthscale, order: int = 10,
+                   force_kernel: str = "rbf"):
+    """Augmented state-space model of the second-order (spring-damper) LFM
+    (``models.simm2``): ``x_j'' + 2 alpha_j x_j' + k_j x_j = B_j + S_j f``,
+    ``k_j = alpha_j^2 + omega_j^2``, linear state evolution in ``(x_j, v_j)``
+    under the force prior of :func:`build_lfm_ssm`. State
+    ``z = [f-state (p), x (G), v (G)]``, m = p + 2G; the t=0 convention of the
+    closed forms (position at the steady state, velocity 0, both
+    deterministic, force stationary). Its only transcendental is the
+    ``expm`` of a stable matrix, so it stays finite where the complex-erf
+    closed forms overflow (``omega l`` past ~12).
+
+    The stationary blocks solve the Lyapunov equation column by column in
+    the row-major vec form: per gene the (2p, 2p) system
+    ``(F_f (x) I_2 + I_p (x) A_j) vec C_j = -vec(P_ff M_j^T)`` and per gene
+    pair the 4 x 4 system ``(A_i (x) I_2 + I_2 (x) A_j) vec P_ij =
+    -vec(M_i C_j + (M_j C_i)^T)``, each a batched ``solve_ex`` (no host
+    sync), differentiable in alpha, omega, sens and lengthscale.
+
+    Returns ``(F, P_inf, P0, h_force)``."""
+    dtype, dev = alpha.dtype, alpha.device
+    f_c, h_c, p_diag, rate = _force_system(order, force_kernel)
+    p = f_c.shape[0]
+    g = alpha.shape[0]
+    kw = dict(dtype=dtype, device=dev)
+    spring = alpha**2 + omega**2
+
+    f_c = torch.as_tensor(f_c, **kw)
+    h_c = torch.as_tensor(h_c, **kw)
+    p_ff = torch.as_tensor(np.diag(p_diag), **kw)
+    f_force = f_c * (rate / lengthscale)
+
+    zeros_pg = torch.zeros((p, g), **kw)
+    zeros_gg = torch.zeros((g, g), **kw)
+    eye_g = torch.eye(g, **kw)
+    f_aug = torch.cat([
+        torch.cat([f_force, zeros_pg, zeros_pg], dim=1),
+        torch.cat([zeros_pg.T, zeros_gg, eye_g], dim=1),  # dx = v
+        torch.cat([sens[:, None] * h_c[None, :], -torch.diag(spring),
+                   -torch.diag(2.0 * alpha)], dim=1),  # dv = S f - k x - 2 a v
+    ], dim=0)
+
+    a_mat = _osc_matrix(alpha, spring)  # (G, 2, 2)
+    eye2 = torch.eye(2, **kw)
+    eye_p = torch.eye(p, **kw)
+    # kron(F_f, I_2) and the per-gene kron(I_p, A_j), row-major.
+    kron_f = (f_force[:, None, :, None] * eye2[None, :, None, :]).reshape(2 * p, 2 * p)
+    kron_a = (eye_p[None, :, None, :, None] * a_mat[:, None, :, None, :]).reshape(g, 2 * p, 2 * p)
+    rhs_base = p_ff @ h_c  # (p,)
+    b = torch.stack([torch.zeros((g, p), **kw), sens[:, None] * rhs_base[None, :]], dim=-1)
+    sol, _ = torch.linalg.solve_ex(kron_f[None] + kron_a, -b.reshape(g, 2 * p, 1))
+    c_blocks = sol.reshape(g, p, 2)  # (G, p, 2): cov(f-state, (x_j, v_j))
+
+    # Gene pairs: b[r, s] = d_{r1} S_i (h_c C_j)[s] + d_{s1} S_j (h_c C_i)[r].
+    hc_c = torch.einsum("i,gis->gs", h_c, c_blocks)  # (G, 2)
+    sel = eye2[1]  # e_1
+    b2 = (sel[None, None, :, None] * (sens[:, None, None] * hc_c[None, :, :])[:, :, None, :]
+          + sel[None, None, None, :] * (sens[None, :, None] * hc_c[:, None, :])[:, :, :, None])
+    kron_i = (a_mat[:, None, :, None, :, None] * eye2[None, None, None, :, None, :]).reshape(
+        g, 1, 4, 4)
+    kron_j = (eye2[None, None, :, None, :, None] * a_mat[None, :, None, :, None, :]).reshape(
+        1, g, 4, 4)
+    sol2, _ = torch.linalg.solve_ex(kron_i + kron_j, -b2.reshape(g, g, 4, 1))
+    pair = sol2.reshape(g, g, 2, 2)  # [i, j] = P_{(x_i, v_i), (x_j, v_j)}
+
+    c_x, c_v = c_blocks[:, :, 0].T, c_blocks[:, :, 1].T  # (p, G)
+    p_inf = torch.cat([
+        torch.cat([p_ff, c_x, c_v], dim=1),
+        torch.cat([c_x.T, pair[:, :, 0, 0], pair[:, :, 0, 1]], dim=1),
+        torch.cat([c_v.T, pair[:, :, 1, 0], pair[:, :, 1, 1]], dim=1),
+    ], dim=0)
+    p_inf = _symmetrize(p_inf)
+
+    p0 = F.pad(p_ff, (0, 2 * g, 0, 2 * g))
+    h_force = torch.cat([h_c, torch.zeros((2 * g,), **kw)])
+    return f_aug, p_inf, p0, h_force
+
+
 def discretize(f_aug, p_inf, dts, max_unique: int | None = None):
     """Exact discretization over step sizes ``dts`` (scalar or (T,)):
     ``A = expm(F dt)`` and ``Q = P_inf - A P_inf A^T`` (the stationarity
@@ -417,8 +508,9 @@ def kalman_filter(a, q, h, r_var, ys, p0, m0=None, mask=None, obs_mask=None,
     optional (T,) {0, 1}, read on the host — steps with 0 skip the update
     and add no likelihood. ``obs_mask``: optional (T, n_o) {0, 1} per-entry
     missingness (those entries of ``ys`` may be NaN). ``obs_slice``: the
-    promise that ``h`` is the selection ``[0 | I]`` of the last ``n_o``
-    coordinates (the sliced update; ignored with ``obs_mask``).
+    promise that ``h`` is the selection ``[0 | I | 0]`` of the coordinates
+    ``obs_slice : obs_slice + n_o`` (the sliced update; ignored with
+    ``obs_mask``).
 
     Returns ``(ms, ps, ll)``: filtered means (T, m), covariances (T, m, m)
     and the marginal log-likelihood. No step syncs with the host.
@@ -831,6 +923,36 @@ def lfm_mll_ss(params, timepoints, y, *, jitter: float, replicates: int = 1,
     )
 
 
+def lfm2_mll_ss(params, timepoints, y, *, jitter: float, replicates: int = 1,
+                order: int = 10, parallel=None, uniform: bool = True, shard=None,
+                obs_mask=None, force_kernel: str = "rbf",
+                stationary_after: int | None = None):
+    """State-space MLL of the second-order family (``models.simm2``): the
+    contract of :func:`lfm_mll_ss` with ``params`` a ``SIMM2Params``
+    (alpha/omega in place of decay), the position block observed
+    (``H = [0 | I_G | 0]``), mean ``B / k``. O(T (p + 2G)^3), and finite
+    where the complex-erf closed forms overflow (:func:`build_lfm2_ssm`)."""
+    assert_full_fp32(_WHO)
+    f_aug, p_inf, p0, _ = build_lfm2_ssm(
+        params.alpha, params.omega, params.sensitivity, params.lengthscale, order=order,
+        force_kernel=force_kernel,
+    )
+    g = params.alpha.shape[0]
+    t = torch.as_tensor(timepoints)
+    p_f = p0.shape[0] - 2 * g
+    h = F.pad(gene_observation_matrix(p_f, g, replicates, t.dtype, t.device), (0, g))
+    spring = params.alpha**2 + params.omega**2
+    mean_obs = (params.basal / spring).repeat(replicates)
+    r_var = torch.full((replicates * g,), jitter, dtype=t.dtype, device=t.device) \
+        + params.obs_stddev**2
+    return _gridded_ssm_mll(
+        f_aug, p_inf, p0, h, mean_obs, t, y, r_var,
+        parallel=parallel, uniform=uniform, shard=shard, obs_mask=obs_mask,
+        obs_slice=p_f if replicates == 1 else None,
+        stationary_after=stationary_after,
+    )
+
+
 def _stationary_tail_ll(a, q, h, r_var, ys_tail, m_k, p_k):
     """Frozen-gain (steady-state) likelihood of the remaining steps of a
     uniform-grid chain from the exact filtered state ``(m_k, P_k)``: the
@@ -1138,6 +1260,42 @@ def lfm_predict_ss(params, timepoints, y, t_test, *, noise_var, replicates: int 
         f_var = torch.einsum("i,tij,j->t", h_force, p_t, h_force)
         x_mean = m_t[:, p:] + mean[None, :]
         x_var = torch.diagonal(p_t, dim1=1, dim2=2)[:, p:]
+    return f_mean, f_var, x_mean, x_var
+
+
+def lfm2_predict_ss(params, timepoints, y, t_test, *, noise_var, replicates: int = 1,
+                    order: int = 10, obs_mask=None, parallel=None, shard=None,
+                    unique_dts=None, force_kernel: str = "rbf", interp: str = "union"):
+    """Smoothed posterior of the second-order family, the state-space
+    analogue of ``SecondOrderSIMM.latent_predict`` (the closed forms use the
+    consistent force prior, so mean and variance match the dense path to
+    the SDE order's error): ``(f_mean, f_var, x_mean, x_var)``, x the
+    position block with ``B / k`` added back. The contracts of
+    :func:`lfm_predict_ss` (``interp``, ``unique_dts``, the order of the
+    returned points, negative test times). Runs under ``torch.no_grad``."""
+    assert_full_fp32(_WHO)
+    _refuse_shard(shard)
+    with torch.no_grad():
+        t_train = torch.as_tensor(timepoints)
+        t_test = torch.as_tensor(t_test, dtype=t_train.dtype, device=t_train.device)
+        g = params.alpha.shape[0]
+        f_aug, p_inf, p0, h_force = build_lfm2_ssm(
+            params.alpha, params.omega, params.sensitivity, params.lengthscale, order=order,
+            force_kernel=force_kernel,
+        )
+        p_f = p0.shape[0] - 2 * g
+        h = F.pad(gene_observation_matrix(p_f, g, replicates, t_train.dtype, t_train.device),
+                  (0, g))
+        mean = params.basal / (params.alpha**2 + params.omega**2)
+        m_t, p_t = _pick_smooth(interp)(
+            f_aug, p_inf, p0, h, t_train, t_test, y, mean.repeat(replicates), noise_var,
+            obs_mask=obs_mask, parallel=parallel, unique_dts=unique_dts,
+            obs_slice=p_f if replicates == 1 else None,
+        )
+        f_mean = m_t @ h_force
+        f_var = torch.einsum("i,tij,j->t", h_force, p_t, h_force)
+        x_mean = m_t[:, p_f:p_f + g] + mean[None, :]
+        x_var = torch.diagonal(p_t, dim1=1, dim2=2)[:, p_f:p_f + g]
     return f_mean, f_var, x_mean, x_var
 
 

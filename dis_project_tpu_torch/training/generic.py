@@ -1,9 +1,12 @@
-"""Optimizer rules and the finite-guarded training transition.
+"""Optimizer rules, the finite-guarded training transition and the
+model-agnostic training loops.
 
-Port of the parts of ``dis_project_tpu/training/generic.py`` the exact-SIMM
-trainer uses, and of the optax rules it calls. The JAX loop is one compiled
-``lax.scan``; here it is a Python loop, and the guard's ``lax.cond``
-becomes a host-side ``if``.
+Port of ``dis_project_tpu/training/generic.py`` and of the optax rules it
+calls. The JAX loop is one compiled ``lax.scan``; here it is a Python loop,
+and the guard's ``lax.cond`` becomes a host-side ``if``. :func:`fit_loop`
+and :func:`fit_checkpointed` train any ``loss_fn(raw) -> scalar`` over a
+NamedTuple of raw parameters (the model families other than the exact
+SIMM, whose trainer is ``training.trainer``), with the same step semantics.
 
 Every optimizer is a pair of pure functions over a state tuple, as optax's
 are: ``init(params) -> state`` and ``update(grads, state, params=None,
@@ -28,8 +31,9 @@ Parameter trees are NamedTuples (or tuples) of tensors.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -447,3 +451,188 @@ def guarded_transition(value_and_grad_fn, do_update, raw, opt_state, good,
     scaled = type(updates)(*(u * scale for u in updates))
     return (apply_updates(g_raw, scaled), opt2, (g_raw, g_opt), s, count + 1,
             loss_g, grads_g, True)
+
+
+@dataclasses.dataclass
+class LoopResult:
+    """Outcome of :func:`fit_loop`."""
+
+    raw: Any  # final unconstrained params
+    params: Any  # constrain_fn(raw)
+    history: torch.Tensor  # (num_iters,) per-step loss
+    grad_norms: torch.Tensor  # (num_iters,)
+    param_trace: Optional[Any] = None  # stacked constrained params
+    opt_state: Optional[Any] = None
+    guard_flags: Optional[torch.Tensor] = None  # (num_iters,) bool: the guard fired
+    # Final (good, streak, count) guard carry: fit_loop's init_guard for the
+    # next segment, so segmented runs reproduce the unsegmented one.
+    guard_state: Optional[Tuple] = None
+
+    @property
+    def guard_count(self) -> int:
+        """Number of finite-guard events (non-finite loss/grad recoveries)."""
+        if self.guard_flags is None:
+            return 0
+        return int(self.guard_flags.sum())
+
+
+def _stack(values, like):
+    if values:
+        return torch.stack(values)
+    return torch.zeros(0, dtype=like.dtype, device=like.device)
+
+
+def fit_loop(
+    loss_fn: Callable[[Any], torch.Tensor],
+    raw0: Any,
+    *,
+    num_iters: int,
+    learning_rate: float = 0.01,
+    optimizer: Any = "adam",
+    constrain_fn: Optional[Callable[[Any], Any]] = None,
+    clamp_raw: Optional[Callable[[Any], Any]] = None,
+    track_parameters: bool = False,
+    init_state: Optional[Tuple[Any, Any]] = None,
+    finite_guard: bool = True,
+    init_guard: Optional[Tuple] = None,
+) -> LoopResult:
+    """Minimise ``loss_fn`` over the raw NamedTuple ``raw0``.
+
+    ``optimizer``: ``'adam'``, ``'lbfgs'`` (its updates take the value, the
+    gradient and ``loss_fn``) or an optimizer object. ``clamp_raw``: the
+    family's raw-space projection, applied before the optimizer is
+    initialised and after every update. ``constrain_fn`` maps raw to
+    constrained parameters for the returned ``params`` and the per-step
+    trace. ``init_state`` ``(raw, opt_state)`` and ``init_guard`` continue an
+    earlier run exactly. ``finite_guard`` backtracks on a non-finite loss or
+    gradient (:func:`guarded_transition`)."""
+    is_lbfgs = optimizer == "lbfgs"
+    if isinstance(optimizer, str):
+        optimizer = make_optimizer(optimizer, learning_rate)
+    constrain_fn = constrain_fn or (lambda r: r)
+
+    def vg(r):
+        return value_and_grad(loss_fn, r)
+
+    def do_update(grads, state, r, loss):
+        if is_lbfgs:
+            return optimizer.update(grads, state, r, loss, grad=grads, value_fn=loss_fn)
+        return optimizer.update(grads, state, r, loss)
+
+    if init_state is not None:
+        raw, opt_state = init_state
+    else:
+        raw = clamp_raw(raw0) if clamp_raw is not None else raw0
+        opt_state = optimizer.init(raw)
+    good, streak, count = init_guard if init_guard is not None else ((raw, opt_state), 0, 0)
+
+    losses, norms, flags, trace = [], [], [], []
+    for _ in range(num_iters):
+        if finite_guard:
+            (raw, opt_state, good, streak, count, loss, grads,
+             fired) = guarded_transition(vg, do_update, raw, opt_state, good, streak, count)
+            flags.append(fired)
+        else:
+            loss, grads = vg(raw)
+            updates, opt_state = do_update(grads, opt_state, raw, loss)
+            raw = apply_updates(raw, updates)
+        if clamp_raw is not None:
+            raw = clamp_raw(raw)
+        losses.append(loss)
+        norms.append(global_norm(grads))
+        if track_parameters:
+            trace.append(constrain_fn(raw))
+
+    like = raw[0]
+    return LoopResult(
+        raw=raw,
+        params=constrain_fn(raw),
+        history=_stack(losses, like),
+        grad_norms=_stack(norms, like),
+        param_trace=(type(trace[0])(*(torch.stack(leaves) for leaves in zip(*trace)))
+                     if trace else None),
+        opt_state=opt_state,
+        guard_flags=torch.tensor(flags, dtype=torch.bool) if finite_guard else None,
+        guard_state=(good, streak, count) if finite_guard else None,
+    )
+
+
+def guard_payload(guard):
+    """The checkpoint entries of a ``(good, streak, count)`` guard carry."""
+    good, streak, count = guard
+    return {"guard_raw": good[0], "guard_opt": good[1],
+            "guard_streak": streak, "guard_count": count}
+
+
+def fit_checkpointed(
+    loss_fn: Callable[[Any], torch.Tensor],
+    raw0: Any,
+    *,
+    num_iters: int,
+    directory: str,
+    checkpoint_every: int = 50,
+    learning_rate: float = 0.01,
+    optimizer: Any = "adam",
+    constrain_fn: Optional[Callable[[Any], Any]] = None,
+    clamp_raw: Optional[Callable[[Any], Any]] = None,
+    track_parameters: bool = False,
+    resume: bool = True,
+) -> LoopResult:
+    """Fault-tolerant :func:`fit_loop`: ``checkpoint_every``-step segments,
+    with (raw, optimizer state, step, guard carry) saved by
+    ``training.checkpoint`` after each; with ``resume`` a rerun continues
+    exactly from the latest checkpoint in ``directory`` (a checkpoint
+    without the guard carry resumes with the guard re-anchored at the
+    restored point). The result's histories, traces and guard flags cover
+    the steps this call ran."""
+    from dis_project_tpu_torch.training import checkpoint as ckpt
+
+    opt = make_optimizer(optimizer, learning_rate) if isinstance(optimizer, str) else optimizer
+    opt_arg = optimizer if isinstance(optimizer, str) else opt  # 'lbfgs' takes its extras
+    constrain_fn = constrain_fn or (lambda r: r)
+    raw = clamp_raw(raw0) if clamp_raw is not None else raw0
+    opt_state = opt.init(raw)
+    step = 0
+    guard = None
+
+    if resume:
+        latest = ckpt.latest_step(directory)
+        if latest is not None and latest > 0:
+            template = {"raw": raw, "opt_state": opt_state, "step": 0}
+            try:
+                restored = ckpt.restore(directory, latest, template={
+                    **template, **guard_payload(((raw, opt_state), 0, 0))})
+                guard = ((restored["guard_raw"], restored["guard_opt"]),
+                         restored["guard_streak"], restored["guard_count"])
+            except ValueError:
+                restored = ckpt.restore(directory, latest, template=template)
+            raw, opt_state = restored["raw"], restored["opt_state"]
+            step = int(restored["step"])
+
+    results = []
+    while step < num_iters:
+        seg = min(checkpoint_every, num_iters - step)
+        result = fit_loop(
+            loss_fn, raw, num_iters=seg, learning_rate=learning_rate, optimizer=opt_arg,
+            constrain_fn=constrain_fn, clamp_raw=clamp_raw, track_parameters=track_parameters,
+            init_state=(raw, opt_state), init_guard=guard,
+        )
+        raw, opt_state, guard = result.raw, result.opt_state, result.guard_state
+        step += seg
+        results.append(result)
+        ckpt.save(directory, {"raw": raw, "opt_state": opt_state, "step": step,
+                              **guard_payload(guard)}, step=step)
+
+    if not results:  # already complete on entry
+        empty = torch.zeros(0, dtype=raw[0].dtype, device=raw[0].device)
+        return LoopResult(raw=raw, params=constrain_fn(raw), history=empty, grad_norms=empty,
+                          opt_state=opt_state)
+    traces = [r.param_trace for r in results if r.param_trace is not None]
+    return dataclasses.replace(
+        results[-1],
+        history=torch.cat([r.history for r in results]),
+        grad_norms=torch.cat([r.grad_norms for r in results]),
+        guard_flags=torch.cat([r.guard_flags for r in results]),
+        param_trace=(type(traces[0])(*(torch.cat(leaves) for leaves in zip(*traces)))
+                     if traces else None),
+    )

@@ -177,12 +177,6 @@ def fit(
     )
 
 
-def _guard_ckpt(guard):
-    good, streak, count = guard
-    return {"guard_raw": good[0], "guard_opt": good[1],
-            "guard_streak": streak, "guard_count": count}
-
-
 def fit_checkpointed(
     model: ExactSIMM,
     params: SIMMParams,
@@ -213,7 +207,7 @@ def fit_checkpointed(
         template = {"raw": raw, "opt_state": opt_state, "step": 0}
         try:
             restored = ckpt.restore(directory, latest, template={
-                **template, **_guard_ckpt(((raw, opt_state), 0, 0))})
+                **template, **generic.guard_payload(((raw, opt_state), 0, 0))})
             guard = ((restored["guard_raw"], restored["guard_opt"]),
                      restored["guard_streak"], restored["guard_count"])
         except ValueError:
@@ -239,7 +233,7 @@ def fit_checkpointed(
             traces.append(result.param_trace)
         payload = {"raw": raw, "opt_state": opt_state, "step": step}
         if guard is not None:
-            payload.update(_guard_ckpt(guard))
+            payload.update(generic.guard_payload(guard))
         ckpt.save(directory, payload, step=step)
 
     if result is None:  # already complete on entry

@@ -351,7 +351,9 @@ def test_flag_parsing_matches_jax(argv):
     # The ss engine is ported; its temporally-sharded filter is not.
     pytest.param(["--preset", "dense10k", "--mll-engine", "ss", "--ss-shard"],
                  id="--preset dense10k --mll-engine ss"),
-    ["--preset", "dense10k", "--mll-engine", "dist"], ["--model", "simm2"],
+    ["--preset", "dense10k", "--mll-engine", "dist"],
+    # The second-order family is ported; its sparse100k route is not.
+    pytest.param(["--model", "simm2", "--preset", "sparse100k"], id="--model simm2"),
     ["--preset", "p53-replicates", "--ensemble"], ["--posterior-samples", "5"],
     ["--platform", "cpu"], ["--mesh-shape", "4,2"],
 ], ids=lambda a: " ".join(a))
