@@ -61,7 +61,8 @@ it on a parent tree and on this one, in turns, to compare them. Phases (each rai
 3. The main paths, each driven with every launch count set to 0 just
    before it and read just after; each path's kernels must have launched
    (K2's backward on the golden fit and both dense routes), and the plain
-   VJP for the rows' gradient (``cuda_gram.PLAIN_X_GRADS``) never:
+   VJP for the rows' gradient (``cuda_gram.PLAIN_X_GRADS``) never, except
+   on the delay route, once per gradient evaluation (phase 8):
    - the canonical route (``main.fit_and_predict``, p53, float64, with
      ``--track-parameters``, ``--metrics-path`` and ``--checkpoint-dir`` in
      a temporary directory) and the golden row-path fit (``trainer.fit``)
@@ -163,7 +164,32 @@ it on a parent tree and on this one, in turns, to compare them. Phases (each rai
    ``--mll-engine ss``, m = 110: step ms, syncs, device busy share, the
    smoothed force by union and bridge, float64 parity with the exact MLL
    within 5e-3 x max(1, |MLL|) and cosine >= 0.999).
-8. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+8. The multi-force and delayed-response families (:func:`family_phases`,
+   their total wall seconds on a line of its own): ``[multisimm p53]``
+   (``main.run_multiforce``, R = 2, 150 float64 steps on the card and on
+   the CPU: final loss rel 1e-6, first step rel 1e-10, the per-force
+   posteriors (2, 100), no kernel launch; wall, host syncs per step);
+   ``[dense multisimm ss]`` (``main.run_dense --model multisimm
+   --mll-engine ss`` at 50 x 200, R = 2, m = 70, float32, DENSE_STEPS
+   steps: step ms and spread, syncs, device busy share, peak memory, stage
+   ms, the matched recovery; the first step within rel 1e-4 of float64; one
+   Matern-3/2 loss and gradient finite; float64 against ``ExactMultiSIMM``
+   on a 3 x 9 problem at orders 8 and 10, 2e-3 and 5e-4); ``[delay p53]``
+   (``main.run_delay``, 150 float64 steps on the card and on the CPU, each
+   in a temporary working directory: the ``[simm2 p53]`` limits; K2 and
+   K2's backward once per gradient evaluation, K1 in the posterior, the
+   rows' plain VJP (the delays' gradient) exactly once per gradient
+   evaluation; K2, K2's backward and K1 within 1e-10 of their plain versions
+   at the trained warped rows, timed; zero delays bitwise ``ExactSIMM``;
+   the delay gradient within 1e-10 of the all-plain path); ``[dense delay
+   ss]`` (``main.run_dense --model delaysimm --mll-engine ss`` at 50 x 200
+   = 10,000 warped events, float32, DELAY_STEPS steps, DELAY_STEPS_SLOW
+   when a step takes more than 5 s: step ms, syncs, busy share, peak
+   memory, stage ms, gene 0's delay pinned; float64 on a 3 x 9 problem
+   against ``ExactDelaySIMM`` at orders 8 and 12, 5e-3 and 2e-4, gradients
+   5e-4, zero delays against ``lfm_mll_ss`` 1e-9). Every other path must
+   run no plain VJP for the rows' gradient.
+9. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
 import importlib.util
@@ -228,6 +254,9 @@ OPS_ROW_BWD = 33
 # The dense10k configuration (BASELINE config 4 of the JAX package):
 # 50 genes x 200 timepoints, N = 1e4; Adam steps driven on the card.
 DENSE_GENES, DENSE_TIMEPOINTS, DENSE_STEPS = 50, 200, 10
+# The dense delay route's steps (10,000 warped events a step), and its cut
+# when one step takes more than 5 s.
+DELAY_STEPS, DELAY_STEPS_SLOW = 5, 2
 
 # Goldens computed on the CPU by the JAX package in float64 (its optax
 # L-BFGS and Adam), pinned here and asserted against JAX by
@@ -1701,6 +1730,456 @@ def simm2_phases(drive, smi):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+
+def multisimm_p53(drive, smi):
+    """``[multisimm p53]``: ``main.run_multiforce`` (``--model multisimm``,
+    R = 2, the p53 synthetic data, float64, 150 iterations) on the card and
+    on the CPU in this process: the final loss within rel 1e-6, the first
+    step within rel 1e-10 (the ``[simm2 p53]`` limits), the per-force
+    posteriors (R, 100) finite; no kernel launches (the R-force Gram has no
+    hand-written kernel; N = 35 in float64 takes no K3); the wall and the
+    host syncs per training step."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
+    from dis_project_tpu_torch.models import multisimm
+    from dis_project_tpu_torch.training import generic
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multisimm_")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        config = cfg.RunConfig(model="multisimm", num_forces=2, num_iters=150, device=device,
+                               out_dir=os.path.join(tmp, device),
+                               metrics_path=os.path.join(tmp, f"{device}.jsonl"))
+        runs[device] = drive(f"multisimm p53 {device}",
+                             lambda: port_main.run_multiforce(config), (), launch_free=True)
+    card, host = runs["cuda"], runs["cpu"]
+    hc, hh = card.result.history.tolist(), host.result.history.tolist()
+    rel_final = abs(hc[-1] - hh[-1]) / abs(hh[-1])
+    rel_first = abs(hc[0] - hh[0]) / abs(hh[0])
+    lat = card.latent
+    print(f"[multisimm p53] R=2, 150 steps f64: final loss card {hc[-1]!r} cpu {hh[-1]!r} rel "
+          f"{rel_final:.3e} (limit 1e-6); first step rel {rel_first:.3e} (limit 1e-10); wall "
+          f"card {card.wall_s:.3f} s ({1e3 * card.wall_s / 150:.1f} ms a step), cpu "
+          f"{host.wall_s:.3f} s; trained lengthscales "
+          f"{[round(float(v), 4) for v in card.result.params.lengthscale]} ({smi})")
+    require(rel_final <= 1e-6, f"multisimm p53 final loss card vs cpu: {rel_final}")
+    require(rel_first <= 1e-10, f"multisimm p53 first step card vs cpu: {rel_first}")
+    require(tuple(lat.mean.shape) == (2, 100) and bool(torch.isfinite(lat.mean).all()
+                                                      and torch.isfinite(lat.cov).all()),
+            "multisimm p53 per-force posteriors not (2, 100) and finite")
+
+    dev = torch.device("cuda")
+    data = P53Data(replicate=0, source="synthetic", seed=0)
+    X, y, _ = train_arrays(data, dev, torch.float64)
+    model = multisimm.ExactMultiSIMM(num_genes=5, num_forces=2, jitter=cfg.EXACT_JITTER)
+    raw = multisimm.unconstrain(multisimm.init_params(5, 2, torch.float64, dev))
+    _, syncs = count_syncs(lambda: generic.fit_loop(
+        lambda r: -model.mll(multisimm.constrain(r), X, y), raw, num_iters=3))
+    print(f"[multisimm p53] host syncs per training step {syncs / 3:.1f} ({smi})")
+    shutil.rmtree(tmp)
+    return dict(wall_s=card.wall_s)
+
+
+def dense_multisimm_ss(drive, smi):
+    """``[dense multisimm ss]``: ``main.run_dense --model multisimm
+    --mll-engine ss`` at dense10k's full width (50 x 200 = 1e4, R = 2,
+    order 10, m = 70), float32, DENSE_STEPS steps on the schedule
+    ``parallel=None`` picks: step ms and spread, host syncs per loss and
+    gradient, device busy share, peak memory, the matched recovery; float64
+    on the card against ``ExactMultiSIMM.mll`` on the JAX package's 3 x 9
+    problem at orders 8 and 10 (2e-3, 5e-4); the float32 first step within
+    rel 1e-4 of float64; one ``--force-kernel matern32`` loss and gradient,
+    finite."""
+    import numpy as np
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.models import multisimm
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import generic
+
+    dev, f32, f64 = torch.device("cuda"), torch.float32, torch.float64
+    G, T, steps = DENSE_GENES, DENSE_TIMEPOINTS, DENSE_STEPS
+    held = {}
+
+    def run():
+        torch.cuda.reset_peak_memory_stats(dev)
+        held["bytes"] = torch.cuda.memory_allocated(dev)
+        return port_main.run_dense(cfg.RunConfig(
+            preset="dense10k", model="multisimm", num_forces=2, synth_genes=G,
+            synth_timepoints=T, num_iters=steps, x64=False, device="cuda", mll_engine="ss"))
+
+    dense = drive("dense multisimm ss", run, (), launch_free=True)
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["bytes"]) / 2**30
+    hist = dense.result.history.tolist()
+    step_ms = [1e3 * t for t in dense.step_seconds]
+    median = statistics.median(step_ms[1:])
+    q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
+    vg_us = [1e6 * st["value_and_grad_host_s"] / T for st in dense.ss_stats]
+    pick = _schedule_name(ss._select_schedule(None, T, dev)[0])
+    p = dense.result.params
+    corr_d = _corr(p.decay, dense.data.params_true["decay"])
+    corr_s = port_main.matched_force_correlations(
+        p.sensitivity.detach().cpu().numpy(),
+        dense.data.params_true["sensitivity"].detach().cpu().numpy())
+    print(f"[dense multisimm ss] N={G * T} R=2 m={20 + G} f32 losses {hist}; recovery "
+          f"corr(decay) {corr_d:.4f}, matched corr(S[:, r]) {[round(c, 4) for c in corr_s]} "
+          f"({smi})")
+    print(f"[dense multisimm ss] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) "
+          f"{median:.3f}, spread (interquartile) {q3 - q1:.3f}; schedule (parallel=None) {pick}; "
+          f"host us per filter step, loss and gradient {[round(u, 1) for u in vg_us]}; peak "
+          f"memory {peak_gib:.3f} GiB ({smi})")
+    require(all(math.isfinite(v) for v in hist), "dense multisimm ss losses not finite")
+
+    y32, t32 = dense.y, dense.data.timepoints
+    raw32 = multisimm.unconstrain(multisimm.init_params(G, 2, f32, dev))
+    raw64 = type(raw32)(*(r.double() for r in raw32))
+
+    def objective(y, t, **kw):
+        return lambda r: -ss.multisimm_mll_ss(multisimm.constrain(r), t, y,
+                                              jitter=cfg.EXACT_JITTER, **kw)
+
+    (l32, _), syncs = count_syncs(lambda: generic.value_and_grad(objective(y32, t32), raw32))
+    busy = device_busy_ms(lambda: generic.value_and_grad(objective(y32, t32), raw32))
+    share = "not measured (no device time in the trace)" if busy is None else \
+        f"{busy:.3f} ms busy in one value and gradient, {busy / median:.3f} of the step median"
+    leaves = type(raw32)(*(r.detach().requires_grad_(True) for r in raw32))
+    loss = objective(y32, t32)(leaves)
+    stage_ms = {
+        "loss (multisimm_mll_ss)": cuda_ms(lambda: objective(y32, t32)(leaves), reps=3),
+        "backward": cuda_ms(lambda: torch.autograd.grad(loss, tuple(leaves), retain_graph=True),
+                            reps=3),
+    }
+    print(f"[dense multisimm ss] stage ms {json.dumps(stage_ms)} ({smi})")
+    l64, _ = generic.value_and_grad(objective(y32.double(), t32.double()), raw64)
+    rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    print(f"[dense multisimm ss] first step: loss f32 {float(l32)!r} f64 {float(l64)!r} rel "
+          f"{rel:.3e} (limit 1e-4); host syncs per loss and gradient {syncs}; device {share} "
+          f"({smi})")
+    require(rel <= 1e-4, f"dense multisimm ss first-step loss f32 vs f64: {rel}")
+    lm, gm = generic.value_and_grad(objective(y32, t32, force_kernels=("matern32",) * 2), raw32)
+    finite = math.isfinite(float(lm)) and all(bool(torch.isfinite(g).all()) for g in gm)
+    print(f"[dense multisimm ss] --force-kernel matern32 (both forces): loss {float(lm)!r}, "
+          f"gradient finite {finite} ({smi})")
+    require(finite, "dense multisimm ss matern32 loss or gradient not finite")
+
+    # float64 parity on the JAX package's multi-force test problem.
+    gen = np.random.default_rng(0)
+    Gs, Ts = 3, 9
+    p64 = multisimm.init_params(Gs, 2, f64, dev)._replace(
+        sensitivity=torch.tensor(gen.uniform(0.4, 1.4, (Gs, 2)), dtype=f64, device=dev),
+        lengthscale=torch.tensor([1.2, 3.0], dtype=f64, device=dev),
+        decay=torch.tensor([0.4, 0.8, 1.2], dtype=f64, device=dev))
+    ts = torch.linspace(0.0, 12.0, Ts, dtype=f64, device=dev)
+    ys = torch.tensor(np.random.default_rng(1).normal(size=Gs * Ts), dtype=f64, device=dev)
+    X = torch.stack([ts.repeat(Gs), torch.arange(Gs, dtype=f64, device=dev).repeat_interleave(Ts),
+                     torch.ones(Gs * Ts, dtype=f64, device=dev)], dim=1)
+    exact = float(multisimm.ExactMultiSIMM(num_genes=Gs, num_forces=2, jitter=1e-4).mll(
+        p64, X, ys))
+    errs = {o: abs(float(ss.multisimm_mll_ss(p64, ts, ys, jitter=1e-4, order=o)) - exact)
+            for o in (8, 10)}
+    print(f"[dense multisimm ss] f64 3 x 9: |ss - exact| order 8 {errs[8]:.3e} (limit 2e-3), "
+          f"order 10 {errs[10]:.3e} (limit 5e-4) ({smi})")
+    require(errs[8] < 2e-3 and errs[10] < 5e-4, f"dense multisimm ss parity: {errs}")
+    return dict(median=median, spread=q3 - q1, peak_gib=peak_gib, syncs=syncs, busy=busy)
+
+
+def _kernel_check(kernel, plain):
+    """``(err, ms, plain_ms)``: the max abs error of ``kernel()`` against
+    ``plain()`` (tuples compared leaf by leaf) relative to max(1,
+    max|plain|), and both timed."""
+    import torch
+
+    got, ref = kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(got, ref))
+    ms, plain_ms = cuda_ms(kernel, reps=20), cuda_ms(plain, reps=20)
+    torch.cuda.synchronize()
+    return err, ms, plain_ms
+
+
+def delay_p53(drive, smi):
+    """``[delay p53]``: ``main.run_delay`` (``--model delaysimm``, p21 pinned,
+    the p53 synthetic data, float64, 150 iterations) on the card and on the
+    CPU in this process, each in its own temporary working directory (the
+    route writes ``hyperparams.csv`` there): the final loss within rel
+    1e-6, the first step within rel 1e-10; on the card K2 and K2's backward
+    once per gradient evaluation, K1 in the latent posterior, and the plain
+    VJP of the rows' gradient (the delays') once per gradient evaluation.
+    Then at the trained warped rows (genes clamped to t = 0 included) K2,
+    K2's backward (on the MLL's own cotangent) and K1 against their plain
+    versions within 1e-10, timed; with every delay 0 the MLL bitwise equal
+    to ``ExactSIMM.mll``; the delay gradient within 1e-10 relative of the
+    all-plain float64 path."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
+    from dis_project_tpu_torch.models import delaysimm, simm
+    from dis_project_tpu_torch.ops import cuda_gram
+    from dis_project_tpu_torch.ops import gram as gram_ops
+    from dis_project_tpu_torch.ops import mll as mll_ops
+    from dis_project_tpu_torch.training import generic
+    from dis_project_tpu_torch.utils.test_grids import latent_grid
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_delay_")
+    cwd = os.getcwd()
+    runs, launched = {}, {}
+
+    def grad_evals(out):
+        return len(out.result.history) + out.result.guard_count
+
+    def route(config):
+        out = port_main.run_delay(config)
+        launched[config.device] = dict(cuda_gram.LAUNCHES)
+        return out
+
+    try:
+        for device in ("cuda", "cpu"):
+            os.makedirs(os.path.join(tmp, device))
+            os.chdir(os.path.join(tmp, device))
+            config = cfg.RunConfig(model="delaysimm", num_iters=150, device=device,
+                                   out_dir=os.path.join(tmp, device, "plots"),
+                                   metrics_path=os.path.join(tmp, f"{device}.jsonl"))
+            launches = ("gram_sym", "gram_sym_bwd", "gram_rect") if device == "cuda" else ()
+            runs[device] = drive(f"delay p53 {device}", lambda: route(config), launches,
+                                 x_grads=grad_evals if device == "cuda" else None)
+    finally:
+        os.chdir(cwd)
+    card, host = runs["cuda"], runs["cpu"]
+    # One K2 and one K2 bwd per gradient evaluation, the posterior's two K2
+    # (training and test rows) and one K1.
+    want = {"gram_sym": grad_evals(card) + 2, "gram_sym_bwd": grad_evals(card), "gram_rect": 1}
+    require(launched["cuda"] == want, f"delay p53 launches {launched['cuda']}, not {want}")
+    hc, hh = card.result.history.tolist(), host.result.history.tolist()
+    rel_final = abs(hc[-1] - hh[-1]) / abs(hh[-1])
+    rel_first = abs(hc[0] - hh[0]) / abs(hh[0])
+    params = card.result.params
+    print(f"[delay p53] 150 steps f64: final loss card {hc[-1]!r} cpu {hh[-1]!r} rel "
+          f"{rel_final:.3e} (limit 1e-6); first step rel {rel_first:.3e} (limit 1e-10); wall "
+          f"card {card.wall_s:.3f} s ({1e3 * card.wall_s / 150:.1f} ms a step), cpu "
+          f"{host.wall_s:.3f} s; gradient evaluations {grad_evals(card)}; trained delays "
+          f"{[round(float(v), 4) for v in params.delay]} ({smi})")
+    require(rel_final <= 1e-6, f"delay p53 final loss card vs cpu: {rel_final}")
+    require(rel_first <= 1e-10, f"delay p53 first step card vs cpu: {rel_first}")
+    require(bool(torch.isfinite(card.latent.mean).all()), "delay p53 latent force not finite")
+
+    # The kernels at the trained warped rows, against their plain versions.
+    dev, f64 = torch.device("cuda"), torch.float64
+    data = P53Data(replicate=0, source="synthetic", seed=0)
+    X, y, var = train_arrays(data, dev, f64)
+    model = delaysimm.ExactDelaySIMM(num_genes=5, jitter=cfg.EXACT_JITTER)
+    xw = delaysimm.warp_rows(X, params.delay, 5)
+    grid = latent_grid(100, dtype=f64, device=dev)
+    d, s, ell = params.decay, params.sensitivity, params.lengthscale
+    clamped = int((xw[:, 0] == 0).sum())
+    K = cuda_gram.gram_sym_plain(xw, d, s, ell, "mixed").requires_grad_(True)
+    loss = -mll_ops.mvn_logpdf(y, model.mean_function(params, X),
+                               mll_ops.add_diagonal(K, model.jitter + params.obs_stddev**2))
+    (g_K,) = torch.autograd.grad(loss, K)
+    checks = {
+        "K2": _kernel_check(lambda: cuda_gram.gram_sym_kernel(xw, d, s, ell, "mixed"),
+                            lambda: cuda_gram.gram_sym_plain(xw, d, s, ell, "mixed")),
+        "K2 bwd": _kernel_check(
+            lambda: cuda_gram.gram_sym_bwd_kernel(xw, d, s, ell, "mixed", g_K),
+            lambda: cuda_gram.gram_sym_vjp_plain(xw, d, s, ell, "mixed", g_K,
+                                                 (False, True, True, True))[1:]),
+        "K1": _kernel_check(lambda: cuda_gram.gram_rect_kernel(xw, grid, d, s, ell, "mixed"),
+                            lambda: gram_ops.cross_covariance_kind(xw, grid, d, s, ell, "mixed")),
+    }
+    for name, (err, ms, plain_ms) in checks.items():
+        shape = "35 x 100-point latent grid" if name == "K1" else "N=35"
+        print(f"[delay p53] {name} at the trained warped rows ({shape}, {clamped} rows clamped "
+              f"to t = 0) f64: max abs err / max(1, |plain|) {err:.3e} (limit 1e-10); ms "
+              f"{ms:.4f} plain_ms {plain_ms:.4f} ({smi})")
+        require(err <= 1e-10, f"delay p53 {name} vs plain at the warped rows: {err}")
+
+    # Zero delays: bitwise ExactSIMM.
+    p0 = params._replace(delay=torch.zeros_like(params.delay))
+    m_delay = model.mll(p0, X, y)
+    m_simm = simm.ExactSIMM(num_genes=5, jitter=cfg.EXACT_JITTER).mll(simm.SIMMParams(*p0[:5]),
+                                                                      X, y)
+    same = bool(torch.equal(m_delay, m_simm))
+    print(f"[delay p53] every delay 0: MLL {float(m_delay)!r} vs ExactSIMM {float(m_simm)!r}, "
+          f"bitwise equal {same} ({smi})")
+    require(same, "delay p53 zero-delay MLL differs from ExactSIMM's")
+
+    # The delay gradient through the kernels against the all-plain path.
+    raw = delaysimm.unconstrain(params)
+    plain_model = delaysimm.ExactDelaySIMM(num_genes=5, jitter=cfg.EXACT_JITTER, kernels=False)
+    _, g_k = generic.value_and_grad(lambda r: -model.mll(delaysimm.constrain(r), X, y), raw)
+    _, g_p = generic.value_and_grad(lambda r: -plain_model.mll(delaysimm.constrain(r), X, y), raw)
+    rels = {name: float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+            for name, a, b in zip(raw._fields, g_k, g_p)}
+    print(f"[delay p53] raw gradient through K2, K2 bwd and the rows' plain VJP vs the all-plain "
+          f"f64 path, max abs err / max(1, |plain|): {json.dumps(rels)} (limit 1e-10); delay "
+          f"gradient {[float(v) for v in g_k.delay]} ({smi})")
+    require(max(rels.values()) <= 1e-10, f"delay p53 gradient vs all-plain: {rels}")
+    require(bool((g_k.delay != 0).any()), "delay p53 delay gradient is zero")
+    shutil.rmtree(tmp)
+    return dict(wall_s=card.wall_s, checks=checks)
+
+
+def dense_delay_ss(drive, smi):
+    """``[dense delay ss]``: ``main.run_dense --model delaysimm --mll-engine
+    ss`` at dense10k's full width (50 x 200: 10,000 warped events, order
+    10, m = 60), float32, DELAY_STEPS steps (DELAY_STEPS_SLOW when the first
+    step takes more than 5 s): step ms and spread, host syncs per loss and
+    gradient, device busy share, peak memory, gene 0's delay pinned, the
+    recovery; float64 on the card on the JAX package's 3 x 9 problem:
+    ``delaysimm_mll_ss`` against ``ExactDelaySIMM.mll`` at orders 8 and 12
+    (5e-3, 2e-4), the order-12 raw gradients (delays included) within 5e-4
+    relative, and the zero-delay reduction to ``lfm_mll_ss`` within 1e-9."""
+    import numpy as np
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.models import delaysimm, simm
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import generic
+
+    dev, f32, f64 = torch.device("cuda"), torch.float32, torch.float64
+    G, T = DENSE_GENES, DENSE_TIMEPOINTS
+    held = {}
+
+    def run(steps):
+        torch.cuda.reset_peak_memory_stats(dev)
+        held["bytes"] = torch.cuda.memory_allocated(dev)
+        return port_main.run_dense(cfg.RunConfig(
+            preset="dense10k", model="delaysimm", synth_genes=G, synth_timepoints=T,
+            num_iters=steps, x64=False, device="cuda", mll_engine="ss"))
+
+    # One step first: it decides how many the measured run takes.
+    probe = run(1)
+    steps = DELAY_STEPS if probe.step_seconds[0] <= 5.0 else DELAY_STEPS_SLOW
+    dense = drive("dense delay ss", lambda: run(steps), (), launch_free=True)
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["bytes"]) / 2**30
+    hist = dense.result.history.tolist()
+    step_ms = [1e3 * t for t in dense.step_seconds]
+    later = step_ms[1:] or step_ms
+    median = statistics.median(later)
+    spread = statistics.quantiles(later, n=4)[2] - statistics.quantiles(later, n=4)[0] \
+        if len(later) >= 2 else float("nan")
+    n_ev = G * T
+    vg_us = [1e6 * st["value_and_grad_host_s"] / n_ev for st in dense.ss_stats]
+    pick = _schedule_name(ss._select_schedule(None, n_ev, dev)[0])
+    p = dense.result.params
+    pinned = float(dense.result.raw.delay[0]) == delaysimm.ZERO_DELAY_RAW
+    corr_d = _corr(p.decay, dense.data.params_true["decay"])
+    corr_del = _corr(p.delay, dense.data.params_true["delay"])
+    print(f"[dense delay ss] N={n_ev} warped events, f32, {steps} steps (probe step "
+          f"{1e3 * probe.step_seconds[0]:.1f} ms; 5 s limit) losses {hist}; gene 0's raw delay "
+          f"pinned at -20: {pinned}; recovery corr(decay) {corr_d:.4f} corr(delay) "
+          f"{corr_del:.4f} ({smi})")
+    print(f"[dense delay ss] step ms {[round(t, 3) for t in step_ms]} median (steps 2+) "
+          f"{median:.3f}, spread (interquartile) {spread:.3f}; schedule (parallel=None) {pick}; "
+          f"host us per event, loss and gradient {[round(u, 1) for u in vg_us]}; peak memory "
+          f"{peak_gib:.3f} GiB (the batched matrix_exp's backward over {n_ev} {10 + G} x "
+          f"{10 + G} matrices) ({smi})")
+    require(all(math.isfinite(v) for v in hist), "dense delay ss losses not finite")
+    require(pinned, "dense delay ss: gene 0's delay left its pin")
+
+    raw32 = delaysimm.unconstrain(delaysimm.init_params(G, f32, dev))
+    t32 = dense.data.timepoints
+
+    def objective(r):
+        return -ss.delaysimm_mll_ss(delaysimm.constrain(r), t32, dense.y,
+                                    jitter=cfg.EXACT_JITTER)
+
+    _, syncs = count_syncs(lambda: generic.value_and_grad(objective, raw32))
+    busy = device_busy_ms(lambda: generic.value_and_grad(objective, raw32))
+    share = "not measured (no device time in the trace)" if busy is None else \
+        f"{busy:.3f} ms busy in one value and gradient, {busy / median:.3f} of the step median"
+    print(f"[dense delay ss] host syncs per loss and gradient {syncs}; device {share} ({smi})")
+
+    # Where the step goes: its stages alone with CUDA events at the init
+    # point, and the peak memory of the batched matrix_exp with its backward.
+    leaves = type(raw32)(*(r.detach().requires_grad_(True) for r in raw32))
+    p0 = delaysimm.constrain(leaves)
+    f_aug, p_inf, _, _ = ss.build_lfm_ssm(p0.decay, p0.sensitivity, p0.lengthscale)
+    ev_t = ss._delay_event_grid(p0, t32, 1)[0]
+    dts = torch.diff(ev_t, prepend=torch.zeros(1, dtype=f32, device=dev))
+
+    def expm_fwd_bwd():
+        a, q = ss.discretize(f_aug, p_inf, dts)
+        return torch.autograd.grad(a.sum() + q.sum(), tuple(leaves), allow_unused=True,
+                                   retain_graph=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    expm_fwd_bwd()
+    expm_peak = (torch.cuda.max_memory_allocated(dev) - before) / 2**30
+    loss = objective(leaves)
+    stages = {
+        "discretize (matrix_exp over the events)": lambda: ss.discretize(f_aug, p_inf, dts),
+        "discretize forward and backward": expm_fwd_bwd,
+        "loss (delaysimm_mll_ss)": lambda: objective(leaves),
+        "backward": lambda: torch.autograd.grad(loss, tuple(leaves), retain_graph=True),
+    }
+    stage_ms = {name: cuda_ms(fn, reps=3, warmup=1) for name, fn in stages.items()}
+    print(f"[dense delay ss] stage ms {json.dumps(stage_ms)}; the discretize forward and "
+          f"backward's peak memory {expm_peak:.3f} GiB ({smi})")
+
+    # float64 on the card, the JAX package's delay test problem.
+    Gs, Ts = 3, 9
+    kw = dict(dtype=f64, device=dev)
+    ts = torch.linspace(0.0, 12.0, Ts, **kw)
+    ys = torch.tensor(np.random.default_rng(5).normal(size=Gs * Ts), **kw)
+    pd = delaysimm.init_params(Gs, f64, dev)._replace(
+        delay=torch.tensor([0.5, 0.05, 1.3], **kw), decay=torch.tensor([0.4, 0.9, 0.6], **kw),
+        sensitivity=torch.tensor([1.0, 0.8, 1.2], **kw))
+    X = torch.stack([ts.repeat(Gs), torch.arange(Gs, **kw).repeat_interleave(Ts),
+                     torch.ones(Gs * Ts, **kw)], dim=1)
+    model = delaysimm.ExactDelaySIMM(num_genes=Gs, jitter=1e-4)
+    dense_mll = float(model.mll(pd, X, ys))
+    errs = {o: abs(float(ss.delaysimm_mll_ss(pd, ts, ys, jitter=1e-4, order=o)) - dense_mll)
+            for o in (8, 12)}
+    raw = delaysimm.unconstrain(pd)
+    _, gd = generic.value_and_grad(lambda r: model.mll(delaysimm.constrain(r), X, ys), raw)
+    _, gs = generic.value_and_grad(lambda r: ss.delaysimm_mll_ss(
+        delaysimm.constrain(r), ts, ys, jitter=1e-4, order=12), raw)
+    grel = {name: float((a - b).abs().max()) / (float(a.abs().max()) + 1.0)
+            for name, a, b in zip(raw._fields, gd, gs)}
+    p0 = pd._replace(delay=torch.zeros(Gs, **kw))
+    v1 = float(ss.lfm_mll_ss(simm.SIMMParams(*p0[:5]), ts, ys, jitter=1e-4))
+    v2 = float(ss.delaysimm_mll_ss(p0, ts, ys, jitter=1e-4))
+    zero = abs(v1 - v2) / max(1.0, abs(v1))
+    print(f"[dense delay ss] f64 3 x 9 ({_schedule_name(ss._select_schedule(None, 27, dev)[0])} "
+          f"scalar chain): |ss - exact| order 8 {errs[8]:.3e} (limit 5e-3), order 12 "
+          f"{errs[12]:.3e} (limit 2e-4); order-12 gradients vs exact, max / (max|g| + 1) "
+          f"{json.dumps(grel)} (limit 5e-4); zero delays vs lfm_mll_ss {zero:.3e} (limit 1e-9) "
+          f"({smi})")
+    require(errs[8] < 5e-3 and errs[12] < 2e-4, f"dense delay ss parity: {errs}")
+    require(max(grel.values()) < 5e-4, f"dense delay ss gradient parity: {grel}")
+    require(zero < 1e-9, f"dense delay ss zero-delay reduction: {zero}")
+    return dict(median=median, spread=spread, peak_gib=peak_gib, steps=steps, syncs=syncs,
+                busy=busy)
+
+
+def family_phases(drive, smi):
+    """The multi-force and delayed-response families' phases; prints their
+    total wall seconds."""
+    t0 = time.perf_counter()
+    mp = multisimm_p53(drive, smi)
+    mss = dense_multisimm_ss(drive, smi)
+    dp = delay_p53(drive, smi)
+    dss = dense_delay_ss(drive, smi)
+    print(f"[families] dense10k ss step median: multisimm (R=2) {mss['median']:.3f} ms (spread "
+          f"{mss['spread']:.3f}, {mss['peak_gib']:.3f} GiB), delaysimm {dss['median']:.3f} ms "
+          f"(spread {dss['spread']:.3f}, {dss['peak_gib']:.3f} GiB, {dss['steps']} steps); p53 "
+          f"150 steps multisimm {mp['wall_s']:.3f} s, delaysimm {dp['wall_s']:.3f} s ({smi})")
+    print(f"[family phases] multisimm p53, dense multisimm ss, delay p53 and dense delay ss took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -2397,7 +2876,10 @@ def main():
     counters = (cuda_gram.LAUNCHES, cc.LAUNCHES, cf.LAUNCHES)
     main_counts = {k: 0 for c in counters for k in c}
 
-    def drive(what, fn, must_launch):
+    def drive(what, fn, must_launch, x_grads=None, launch_free=False):
+        """Run ``fn`` with every count at 0: each kernel of ``must_launch``
+        must launch (``launch_free``: none may); the plain VJP of the rows'
+        gradient must run ``x_grads(out)`` times (None: never)."""
         for counts in (*counters, cuda_gram.PLAIN_X_GRADS):
             for k in counts:
                 counts[k] = 0
@@ -2410,8 +2892,11 @@ def main():
               f"{cuda_gram.PLAIN_X_GRADS}")
         for k in must_launch:
             require(got[k] > 0, f"{what}: kernel {k} was not launched")
-        require(all(v == 0 for v in cuda_gram.PLAIN_X_GRADS.values()),
-                f"{what}: the rows' gradient went through the plain VJP")
+        require(not launch_free or not any(got.values()), f"{what}: a kernel was launched")
+        want = 0 if x_grads is None else x_grads(out)
+        require(cuda_gram.PLAIN_X_GRADS["gram_sym_x"] == want,
+                f"{what}: the rows' gradient went through the plain VJP "
+                f"{cuda_gram.PLAIN_X_GRADS['gram_sym_x']} times, not {want}")
         return out
 
     # Canonical route through the CLI's entry point (its device work,
@@ -2784,6 +3269,7 @@ def main():
           f"{ssr['median'] / steady_xla:.3f} ({smi})")
     ss_engine_phases(drive, ssr["dense"], smi)
     simm2_phases(drive, smi)
+    family_phases(drive, smi)
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():

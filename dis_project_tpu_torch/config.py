@@ -17,10 +17,11 @@ NOT_PORTED_PRESETS = ("sparse100k",)
 PORTED_ENGINES = ("cholesky", "cg", "ss")
 NOT_PORTED_ENGINES = ("dist",)
 FORCE_KERNELS = ("rbf", "matern12", "matern32", "matern52")
-# Model families: the first-order and second-order exact families run; the
-# JAX package's other three are named and refused.
-PORTED_MODELS = ("simm", "simm2")
-NOT_PORTED_MODELS = ("multisimm", "nlfm", "delaysimm")
+# Model families: the first-order, second-order, multi-force and
+# delayed-response exact families run; the JAX package's nonlinear family is
+# named and refused.
+PORTED_MODELS = ("simm", "simm2", "multisimm", "delaysimm")
+NOT_PORTED_MODELS = ("nlfm",)
 
 # Exact-path jitter (reference src/main.py:41).
 EXACT_JITTER = 1e-4
@@ -34,7 +35,10 @@ class RunConfig:
     # dense10k — synthetic genes x timepoints exact-GP stress run.
     preset: str = "p53"
     # model family: simm (first-order exact) | simm2 (second-order exact)
+    # | multisimm (R independent latent forces) | delaysimm (per-gene delays)
     model: str = "simm"
+    # multisimm routes: number of latent forces
+    num_forces: int = 2
     # data
     replicate: Optional[int] = 0  # None = all three replicates
     selected_genes: Optional[Sequence[str]] = None
@@ -92,9 +96,13 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
                         "sparse100k is not yet ported")
     parser.add_argument("--model", default=d.model,
                         choices=PORTED_MODELS + NOT_PORTED_MODELS,
-                        help="model family: 'simm' (first-order exact) or 'simm2' "
-                        "(second-order spring-damper exact); multisimm, nlfm and "
-                        "delaysimm are not yet ported")
+                        help="model family: 'simm' (first-order exact), 'simm2' "
+                        "(second-order spring-damper exact), 'multisimm' (R "
+                        "independent latent forces) or 'delaysimm' (per-gene "
+                        "transcriptional delays); nlfm is not yet ported")
+    parser.add_argument("--num-forces", type=int, default=d.num_forces,
+                        help="multisimm route: number of independent "
+                        f"latent forces (default {d.num_forces})")
     parser.add_argument("--replicate", type=str, default="0",
                         help="replicate index 0-2, or 'all'")
     parser.add_argument("--genes", type=str, default=None,
@@ -156,6 +164,7 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
     return RunConfig(
         preset=args.preset,
         model=args.model,
+        num_forces=args.num_forces,
         replicate=None if args.replicate == "all" else int(args.replicate),
         selected_genes=args.genes.split(",") if args.genes else None,
         data_dir=args.data_dir,

@@ -11,29 +11,44 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dis_project_tpu_torch.models.delaysimm import DelaySIMMParams
+from dis_project_tpu_torch.models.multisimm import MultiSIMMParams
 from dis_project_tpu_torch.models.simm import SIMMParams
 from dis_project_tpu_torch.models.simm2 import SIMM2Params
 from dis_project_tpu_torch.ops.precision import PARITY_DTYPE, default_device
 
 
+def _named(cls, mapping, device, dtype):
+    dev = default_device(device)
+    return cls(**{
+        name: torch.as_tensor(np.array(mapping[name]), dtype=dtype, device=dev)
+        for name in cls._fields
+    })
+
+
 def params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE) -> SIMMParams:
     """:class:`SIMMParams` from a mapping with the five field names
     (e.g. ``jax_params._asdict()``); values are array-likes."""
-    dev = default_device(device)
-    return SIMMParams(**{
-        name: torch.as_tensor(np.array(mapping[name]), dtype=dtype, device=dev)
-        for name in SIMMParams._fields
-    })
+    return _named(SIMMParams, mapping, device, dtype)
 
 
 def simm2_params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE) -> SIMM2Params:
     """:class:`SIMM2Params` (the second-order family) from a mapping with its
     six field names (e.g. ``jax_params._asdict()``); values are array-likes."""
-    dev = default_device(device)
-    return SIMM2Params(**{
-        name: torch.as_tensor(np.array(mapping[name]), dtype=dtype, device=dev)
-        for name in SIMM2Params._fields
-    })
+    return _named(SIMM2Params, mapping, device, dtype)
+
+
+def multisimm_params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE) -> MultiSIMMParams:
+    """:class:`MultiSIMMParams` (the R-force family) from a mapping with its
+    five field names; values are array-likes (sensitivity (G, R),
+    lengthscale (R,))."""
+    return _named(MultiSIMMParams, mapping, device, dtype)
+
+
+def delaysimm_params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE) -> DelaySIMMParams:
+    """:class:`DelaySIMMParams` (the delayed-response family) from a mapping
+    with its six field names; values are array-likes."""
+    return _named(DelaySIMMParams, mapping, device, dtype)
 
 
 def arrays_from_numpy(X, y, var, device=None, dtype=PARITY_DTYPE):

@@ -1,7 +1,7 @@
 r"""Synthetic LFM data for the dense stress configurations.
 
-Port of two generators of ``dis_project_tpu/data/synthetic.py`` (the other
-ODE quadrature generators come with their model families):
+Port of four generators of ``dis_project_tpu/data/synthetic.py`` (the
+other ODE quadrature generators come with their model families):
 
 - :func:`sample_prior`: an exact joint draw from the first-order SIMM GP
   prior using the port's own closed-form kernels. Replicates share one
@@ -14,13 +14,21 @@ ODE quadrature generators come with their model families):
   pushed through the damped oscillator by trapezoid convolution with its
   Green's function, on the host in float64 with NumPy, as the JAX package
   does it; independent of the complex-erf closed forms.
+- :func:`generate_ode_multi`: the multi-force quadrature oracle: R
+  independent consistent-RBF forces mixed per gene through (G, R)
+  sensitivities, integrated by the exponential-kernel trapezoid rule.
+- :func:`generate_ode_delay`: the delayed-response quadrature oracle: the
+  force switched on at 0 and shifted per gene by its delay (``np.interp``),
+  gene 0's delay pinned to 0.
 
 Randomness comes from an explicit ``torch.Generator``; the draws are made on
 the CPU, so a seed gives the same data on every device. The JAX package's
 ``jax.random`` stream cannot be reproduced, so each generator is split into
-its draws (:func:`prior_draws`, :func:`ode2_draws`) and a deterministic
-function of them (:func:`prior_from_draws`, :func:`ode2_from_draws`), to
-which parity tests hand JAX-made draws.
+its draws (:func:`prior_draws`, :func:`ode2_draws`, :func:`multi_draws`,
+:func:`delay_draws`) and a deterministic function of them
+(:func:`prior_from_draws`, :func:`ode2_from_draws`,
+:func:`multi_from_draws`, :func:`delay_from_draws`), to which parity tests
+hand JAX-made draws.
 """
 
 from __future__ import annotations
@@ -181,6 +189,57 @@ def sample_prior(generator: torch.Generator, cfg: Optional[SyntheticConfig] = No
     return prior_from_draws(*prior_draws(generator, cfg, dtype), cfg, dtype, dev)
 
 
+def _host64(a):
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a.astype(np.float64)
+
+
+def _fine_force(eps, ell: float, t_fine: np.ndarray) -> np.ndarray:
+    """A consistent-RBF force ``L_f eps`` on the fine grid, ``L_f`` the
+    Cholesky factor of ``exp(-(t - t')^2 / l^2) + 1e-8 I`` (host float64)."""
+    Kff = np.exp(-((t_fine[:, None] - t_fine[None, :]) ** 2) / ell**2)
+    return np.linalg.cholesky(Kff + 1e-8 * np.eye(t_fine.shape[0])) @ _host64(eps)
+
+
+def _first_order_response(b, d, forcing, t_fine, sens=None):
+    r"""``B/D + S e^{-D t} \int_0^t e^{D u} g_j(u) du`` per gene by the
+    cumulative trapezoid rule on the fine grid (host float64), ``forcing``
+    the (G, F) per-gene forcing ``g_j``; ``sens`` (G,) or None (S = 1, the
+    sensitivities inside ``g_j``)."""
+    dt = t_fine[1] - t_fine[0]
+    integrand = np.exp(d[:, None] * t_fine[None, :]) * forcing
+    steps = 0.5 * dt * (integrand[:, 1:] + integrand[:, :-1])
+    cumint = np.concatenate([np.zeros((d.shape[0], 1)), np.cumsum(steps, axis=1)], axis=1)
+    decayed = np.exp(-d[:, None] * t_fine[None, :])
+    if sens is not None:
+        decayed = sens[:, None] * decayed
+    return (b / d)[:, None] + decayed * cumint
+
+
+def _ode_data(x, f_true, noise, params, cfg, dtype, device):
+    """The quadrature generators' container: the (G, T) outputs ``x`` plus
+    ``noise_std`` times the noise draws, and the force at the outputs'
+    times, as ``dtype`` tensors on ``device``."""
+    G, T, R = cfg.num_genes, cfg.num_timepoints, cfg.num_replicates
+
+    def dev_t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    noise64 = cfg.noise_std * _host64(noise).reshape(R, G, T)
+    return SyntheticLFMData(
+        torch.linspace(0.0, cfg.t_max, T, dtype=dtype, device=device),
+        dev_t(x[None, :, :] + noise64),
+        torch.full((R, G, T), cfg.noise_std**2, dtype=dtype, device=device),
+        params,
+        dev_t(f_true),
+    )
+
+
+def _param(a, dtype, device):
+    a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.array(a))
+    return a.to(dtype=dtype, device=device)
+
+
 # The second-order generator's kinetics ranges (JAX generate_ode2's defaults).
 ALPHA_RANGE = (0.2, 0.8)
 OMEGA_RANGE = (0.6, 1.6)
@@ -202,11 +261,6 @@ def ode2_draws(generator: torch.Generator, cfg: SyntheticConfig, oversample: int
     return k["basal"], k["sensitivity"], alpha, omega, eps, noise
 
 
-def _host64(a):
-    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-    return a.astype(np.float64)
-
-
 def ode2_from_draws(basal, sens, alpha, omega, eps, noise, cfg: SyntheticConfig,
                     oversample: int = 16, dtype=PARITY_DTYPE, device="cpu") -> SyntheticLFMData:
     r"""The second-order data of :func:`generate_ode2` from given draws
@@ -215,34 +269,22 @@ def ode2_from_draws(basal, sens, alpha, omega, eps, noise, cfg: SyntheticConfig,
     consistent RBF Gram plus 1e-8 I), and each output
 
     .. math:: x(t_i) = B/k + S \sum_u w_u\, g(t_i - u) f(u),\qquad
-              g(	au) = e^{-lpha	au}\sin(\omega	au)/\omega\ (	au \ge 0),
+              g(\tau) = e^{-\alpha\tau}\sin(\omega\tau)/\omega\ (\tau \ge 0),
 
     with trapezoid weights ``w`` over the whole fine grid (resting initial
     conditions x(0) = B/k, x'(0) = 0), read every ``oversample`` points, plus
     ``noise_std`` times the noise draws. Host float64 (NumPy), then
     ``dtype`` tensors on ``device``."""
-    G, T, R = cfg.num_genes, cfg.num_timepoints, cfg.num_replicates
-
-    def dev_t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-    def param(a):
-        a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.array(a))
-        return a.to(dtype=dtype, device=device)
-
     params = {
-        "basal": param(basal),
-        "sensitivity": param(sens),
-        "alpha": param(alpha),
-        "omega": param(omega),
+        "basal": _param(basal, dtype, device),
+        "sensitivity": _param(sens, dtype, device),
+        "alpha": _param(alpha, dtype, device),
+        "omega": _param(omega, dtype, device),
         "lengthscale": torch.tensor(cfg.lengthscale, dtype=dtype, device=device),
     }
-    ell = float(params["lengthscale"])
-    n_fine = (T - 1) * oversample + 1
+    n_fine = (cfg.num_timepoints - 1) * oversample + 1
     t_fine = np.linspace(0.0, cfg.t_max, n_fine)
-    Kff = np.exp(-((t_fine[:, None] - t_fine[None, :]) ** 2) / ell**2)
-    Lf = np.linalg.cholesky(Kff + 1e-8 * np.eye(n_fine))
-    f_fine = Lf @ _host64(eps)
+    f_fine = _fine_force(eps, float(params["lengthscale"]), t_fine)
 
     dt = t_fine[1] - t_fine[0]
     a = _host64(params["alpha"])[:, None]
@@ -261,14 +303,7 @@ def ode2_from_draws(basal, sens, alpha, omega, eps, noise, cfg: SyntheticConfig,
     weights[0] = weights[-1] = dt / 2.0
     x = b / spring + s * np.einsum("gtf,f,f->gt", green, f_fine, weights)
 
-    noise64 = cfg.noise_std * _host64(noise).reshape(R, G, T)
-    return SyntheticLFMData(
-        torch.linspace(0.0, cfg.t_max, T, dtype=dtype, device=device),
-        dev_t(x[None, :, :] + noise64),
-        torch.full((R, G, T), cfg.noise_std**2, dtype=dtype, device=device),
-        params,
-        dev_t(f_fine[::oversample]),
-    )
+    return _ode_data(x, f_fine[::oversample], noise, params, cfg, dtype, device)
 
 
 def generate_ode2(generator: torch.Generator, cfg: Optional[SyntheticConfig] = None,
@@ -285,3 +320,131 @@ def generate_ode2(generator: torch.Generator, cfg: Optional[SyntheticConfig] = N
     dev = default_device(device)
     draws = ode2_draws(generator, cfg, oversample, alpha_range, omega_range, dtype)
     return ode2_from_draws(*draws, cfg, oversample, dtype, dev)
+
+
+def multi_draws(generator: torch.Generator, cfg: SyntheticConfig, num_forces: int = 2,
+                oversample: int = 16, dtype=PARITY_DTYPE):
+    """Every random draw of :func:`generate_ode_multi`, on the CPU: basal
+    and decay (with the unused sensitivity of the shared kinetics draw) and
+    the (G, R) sensitivity uniforms in ``dtype``, then the float32 standard
+    normals of the R fine-grid forces (R, n_fine) and of the noise (R_rep,
+    G, T)."""
+    G, T, R = cfg.num_genes, cfg.num_timepoints, cfg.num_replicates
+    k = _sample_kinetics(generator, cfg, dtype)
+    lo, hi = cfg.sensitivity_range
+    sens = lo + (hi - lo) * torch.rand((G, num_forces), generator=generator, dtype=dtype)
+    eps = torch.randn(num_forces, (T - 1) * oversample + 1, generator=generator,
+                      dtype=torch.float32)
+    noise = torch.randn(R, G, T, generator=generator, dtype=torch.float32)
+    return k["basal"], k["decay"], sens, eps, noise
+
+
+def multi_from_draws(basal, decay, sens, eps, noise, cfg: SyntheticConfig,
+                     oversample: int = 16, lengthscales=None, dtype=PARITY_DTYPE,
+                     device="cpu") -> SyntheticLFMData:
+    r"""The multi-force data of :func:`generate_ode_multi` from given draws
+    (tensors or numpy arrays): R forces ``L_r eps_r`` on the fine grid, one
+    per lengthscale (default ``linspace(1, 3, R)``, ``cfg.lengthscale`` for
+    R = 1), and each gene
+
+    .. math:: x_j(t) = \frac{B_j}{D_j} + e^{-D_j t}
+        \int_0^t e^{D_j u} \sum_r S_{jr} f_r(u)\,du
+
+    by the cumulative trapezoid rule (host float64). ``params_true`` holds
+    the (G, R) sensitivities and the (R,) lengthscales; ``f_true`` is (R, T)."""
+    R = int(np.asarray(eps).shape[0])
+    if lengthscales is None:
+        lengthscales = np.linspace(1.0, 3.0, R) if R > 1 else [cfg.lengthscale]
+    lengthscales = np.asarray(lengthscales, np.float64)
+    params = {
+        "basal": _param(basal, dtype, device),
+        "sensitivity": _param(sens, dtype, device),
+        "decay": _param(decay, dtype, device),
+        "lengthscale": torch.as_tensor(lengthscales, dtype=dtype, device=device),
+    }
+    n_fine = (cfg.num_timepoints - 1) * oversample + 1
+    t_fine = np.linspace(0.0, cfg.t_max, n_fine)
+    eps64 = _host64(eps)
+    f_fine = np.stack([_fine_force(eps64[r], lengthscales[r], t_fine) for r in range(R)])
+    mixed = _host64(params["sensitivity"]) @ f_fine  # (G, F): per-gene mixed force
+    x_fine = _first_order_response(_host64(params["basal"]), _host64(params["decay"]), mixed,
+                                   t_fine)
+    return _ode_data(x_fine[:, ::oversample], f_fine[:, ::oversample], noise, params, cfg,
+                     dtype, device)
+
+
+def generate_ode_multi(generator: torch.Generator, cfg: Optional[SyntheticConfig] = None,
+                       num_forces: int = 2, oversample: int = 16, lengthscales=None,
+                       dtype=PARITY_DTYPE, device=None) -> SyntheticLFMData:
+    """Multi-force quadrature oracle at ``cfg``'s shape
+    (:func:`multi_from_draws`). Runs on ``device`` (default: the card); the
+    quadrature is host float64."""
+    cfg = cfg or SyntheticConfig()
+    dev = default_device(device)
+    draws = multi_draws(generator, cfg, num_forces, oversample, dtype)
+    return multi_from_draws(*draws, cfg, oversample, lengthscales, dtype, dev)
+
+
+# The delayed-response generator's default delay range (JAX generate_ode_delay).
+DELAY_RANGE = (0.0, 2.0)
+
+
+def delay_draws(generator: torch.Generator, cfg: SyntheticConfig, oversample: int = 16,
+                delay_range: tuple = DELAY_RANGE, dtype=PARITY_DTYPE):
+    """Every random draw of :func:`generate_ode_delay`, on the CPU: the
+    kinetics uniforms (basal, sensitivity, decay) in ``dtype``, the float32
+    normals of the fine-grid force (n_fine,) and of the noise (R, G, T),
+    and last, apart from those streams, the float32 delay uniforms (G,)
+    with gene 0's set to 0."""
+    G, T, R = cfg.num_genes, cfg.num_timepoints, cfg.num_replicates
+    k = _sample_kinetics(generator, cfg, dtype)
+    eps = torch.randn((T - 1) * oversample + 1, generator=generator, dtype=torch.float32)
+    noise = torch.randn(R, G, T, generator=generator, dtype=torch.float32)
+    delays = _uniform(generator, G, delay_range, torch.float32)
+    delays[0] = 0.0
+    return k["basal"], k["sensitivity"], k["decay"], eps, noise, delays
+
+
+def delay_from_draws(basal, sens, decay, eps, noise, delays, cfg: SyntheticConfig,
+                     oversample: int = 16, dtype=PARITY_DTYPE, device="cpu") -> SyntheticLFMData:
+    r"""The delayed-response data of :func:`generate_ode_delay` from given
+    draws (tensors or numpy arrays): the force ``L_f eps`` on the fine
+    grid, shifted per gene by its delay with ``np.interp`` (0 before
+    switch-on), and
+
+    .. math:: x_j(t) = \frac{B_j}{D_j} + S_j e^{-D_j t}
+        \int_0^t e^{D_j u} f(u - \delta_j)\,du
+
+    by the cumulative trapezoid rule (host float64). ``params_true`` holds
+    the delays under ``'delay'``."""
+    params = {
+        "basal": _param(basal, dtype, device),
+        "sensitivity": _param(sens, dtype, device),
+        "decay": _param(decay, dtype, device),
+        "lengthscale": torch.tensor(cfg.lengthscale, dtype=dtype, device=device),
+    }
+    delays = _host64(delays)
+    params["delay"] = torch.as_tensor(delays, dtype=dtype, device=device)
+    n_fine = (cfg.num_timepoints - 1) * oversample + 1
+    t_fine = np.linspace(0.0, cfg.t_max, n_fine)
+    f_fine = _fine_force(eps, float(params["lengthscale"]), t_fine)
+    f_del = np.stack([np.interp(t_fine - dl, t_fine, f_fine, left=0.0) for dl in delays])
+    x_fine = _first_order_response(_host64(params["basal"]), _host64(params["decay"]), f_del,
+                                   t_fine, sens=_host64(params["sensitivity"]))
+    return _ode_data(x_fine[:, ::oversample], f_fine[::oversample], noise, params, cfg, dtype,
+                     device)
+
+
+def generate_ode_delay(generator: torch.Generator, cfg: Optional[SyntheticConfig] = None,
+                       oversample: int = 16, delay_range: tuple = DELAY_RANGE,
+                       dtype=PARITY_DTYPE, device=None) -> SyntheticLFMData:
+    r"""Delayed-response quadrature oracle at ``cfg``'s shape,
+    :math:`\dot x_j = B_j + S_j f(t - \delta_j) - D_j x_j`
+    (:func:`delay_from_draws`); the ground-truth delays in
+    ``params_true['delay']``, gene 0's pinned to 0 (the anchor
+    ``delaysimm.fit`` applies). Runs on ``device`` (default: the card); the
+    quadrature is host float64."""
+    cfg = cfg or SyntheticConfig()
+    dev = default_device(device)
+    draws = delay_draws(generator, cfg, oversample, delay_range, dtype)
+    return delay_from_draws(*draws, cfg, oversample, dtype, dev)

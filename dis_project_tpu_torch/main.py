@@ -43,6 +43,21 @@ says otherwise:
   data, ``--mll-engine cholesky``: ``mll_gridded``, the table Gram, then
   the MLL with K3 in its backward on the card in float32; ``--mll-engine
   ss``: ``ops.statespace.lfm2_mll_ss``; Adam; alpha/omega recovery).
+- ``--model multisimm`` (R = ``--num-forces`` independent latent forces,
+  ``models.multisimm``): on the default preset :func:`run_multiforce` (p53
+  data, ``multisimm.fit``, the lengthscale and kinetics table, one latent
+  posterior per force; ``--checkpoint-dir`` refused, the JAX package's
+  branch raising ``NameError``); with ``--preset dense10k --mll-engine ss``
+  :func:`run_dense_multiforce` (``generate_ode_multi`` data,
+  ``ops.statespace.multisimm_mll_ss``, the matched per-force recovery).
+- ``--model delaysimm`` (per-gene transcriptional delays,
+  ``models.delaysimm``): on the default preset :func:`run_delay` (p53 data,
+  ``delaysimm.fit`` with the p21 kinetics and delay pinned, ``hyperparams.csv``
+  in the working directory, the delay table, the latent force; on the card
+  K2, K2's backward and K1 at the warped rows); with ``--preset dense10k
+  --mll-engine ss`` :func:`run_dense_delay` (``generate_ode_delay`` data,
+  ``ops.statespace.delaysimm_mll_ss`` over T*G warped events, gene 0's delay
+  pinned, decay and delay recovery).
 
 Every other preset, engine, model family and flag of the JAX CLI fails with
 "not yet ported".
@@ -418,12 +433,13 @@ def fit_cg(model, raw0, X, y, num_iters: int, learning_rate: float, probes_for_s
 
 
 def fit_dense_adam(objective, raw, num_iters: int, learning_rate: float, ss_stats=None,
-                   forward_s=None):
+                   forward_s=None, clamp_raw=None):
     """The dense routes' training loop: Adam on ``objective(raw)``, a host
     fetch of each step's loss (the step's end). Returns ``(raw, opt_state,
     losses, norms, step_seconds)``. With ``ss_stats`` (a list) it appends
     each step's host seconds of the loss (the last entry of ``forward_s``,
-    which the objective appends to) and of the value and gradient."""
+    which the objective appends to) and of the value and gradient.
+    ``clamp_raw`` projects the raw parameters after every update."""
     from dis_project_tpu_torch.training import generic
 
     optimizer = generic.Adam(learning_rate)
@@ -435,6 +451,8 @@ def fit_dense_adam(objective, raw, num_iters: int, learning_rate: float, ss_stat
         vg_s = time.perf_counter() - ts
         updates, opt_state = optimizer.update(grads, opt_state)
         raw = generic.apply_updates(raw, updates)
+        if clamp_raw is not None:
+            raw = clamp_raw(raw)
         losses.append(float(loss))  # host fetch: the step has finished
         norms.append(float(generic.global_norm(grads)))
         step_seconds.append(time.perf_counter() - ts)
@@ -458,8 +476,9 @@ def print_ss_step(ss_stats, step_seconds, T: int) -> None:
 def run_dense(config: cfg.RunConfig) -> DenseRun:
     """Dense exact-GP stress run: synthetic first-order data at
     N = genes x timepoints, full-batch training through the engine of
-    ``--mll-engine``, and ground-truth kinetics recovery
-    (``--model simm2``: :func:`run_dense_second_order`)."""
+    ``--mll-engine``, and ground-truth kinetics recovery (``--model
+    simm2``: :func:`run_dense_second_order`; ``multisimm``:
+    :func:`run_dense_multiforce`; ``delaysimm``: :func:`run_dense_delay`)."""
     from dis_project_tpu_torch.data.dataset import train_arrays
     from dis_project_tpu_torch.models import simm
     from dis_project_tpu_torch.ops import iterative
@@ -467,8 +486,9 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     from dis_project_tpu_torch.ops.precision import default_device, dtype_for
     from dis_project_tpu_torch.training import trainer as tr
 
-    if config.model == "simm2":
-        return run_dense_second_order(config)
+    if config.model != "simm":
+        return {"simm2": run_dense_second_order, "multisimm": run_dense_multiforce,
+                "delaysimm": run_dense_delay}[config.model](config)
     dev = default_device(config.device)
     dtype = dtype_for(config.x64)
     G, T = config.synth_genes, config.synth_timepoints
@@ -502,16 +522,10 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
         if config.mll_engine == "ss":
             print(f"Training (full-batch exact MLL, {ss_engine(config)})...")
             ss_stats, forward_s = [], []
-
-            def objective(r):
-                ts = time.perf_counter()
-                loss = -ss_ops.lfm_mll_ss(
-                    simm.constrain(r), timepoints, y, jitter=model.jitter,
-                    force_kernel=config.force_kernel,
-                    stationary_after=config.stationary_after,
-                )
-                forward_s.append(time.perf_counter() - ts)
-                return loss
+            objective = _ss_objective(lambda r: -ss_ops.lfm_mll_ss(
+                simm.constrain(r), timepoints, y, jitter=model.jitter,
+                force_kernel=config.force_kernel, stationary_after=config.stationary_after,
+            ), forward_s)
         else:
             route = dense_gram(dev, dtype)
             print(f"Training (full-batch exact MLL, {route} Gram, Cholesky engine, {dtype})...")
@@ -587,9 +601,13 @@ def dense_ss_report(config: cfg.RunConfig, out: DenseRun) -> None:
 
 
 @dataclasses.dataclass
-class SecondOrderRun:
+class FamilyRun:
+    """A model family's p53 route: the fit, its latent posterior and data."""
+
     result: Any  # training.generic.LoopResult
-    latent: Any  # models.base.Gaussian over the 100-point latent grid
+    # models.base.Gaussian over the 100-point latent grid; the multi-force
+    # route's holds the R forces, mean (R, 100) and covariance (R, 100, 100)
+    latent: Any
     data: Any  # data.dataset.P53Data
     t_grid: torch.Tensor
     wall_s: float  # the fit's wall seconds
@@ -603,7 +621,7 @@ def _check_route_flags(config: cfg.RunConfig, route: str, rejected) -> None:
             raise SystemExit(f"{name} is not supported by the --model {route} route")
 
 
-def run_second_order(config: cfg.RunConfig) -> SecondOrderRun:
+def run_second_order(config: cfg.RunConfig) -> FamilyRun:
     """The second-order (spring-damper) LFM on the p53 data, the
     ``--model simm2`` route: ``SecondOrderSIMM.mll`` on the training rows,
     ``training.generic.fit_loop`` (or ``fit_checkpointed`` under
@@ -651,13 +669,9 @@ def run_second_order(config: cfg.RunConfig) -> SecondOrderRun:
     plots = _have_matplotlib()
     trace = result.param_trace
     if config.track_parameters and trace is not None and plots:
-        from dis_project_tpu_torch.reporting import plotter
-
-        plotter.plot_param_trace({"basal": trace.basal, "sensitivity": trace.sensitivity,
-                                  "alpha": trace.alpha, "omega": trace.omega},
-                                 data.gene_names, save_name=config.save_name or "simm2",
-                                 out_dir=config.out_dir)
-        print("Parameter trace plotted")
+        _plot_trace(config, {"basal": trace.basal, "sensitivity": trace.sensitivity,
+                             "alpha": trace.alpha, "omega": trace.omega},
+                    data.gene_names, "simm2")
 
     params = result.params
     damping, spring = simm2.damping(params), simm2.spring(params)
@@ -679,7 +693,7 @@ def run_second_order(config: cfg.RunConfig) -> SecondOrderRun:
         print(f"Latent-force plot saved under {config.out_dir}/")
     else:
         print("matplotlib is not installed: the latent-force plot is not drawn")
-    return SecondOrderRun(result, latent, data, t_grid, wall)
+    return FamilyRun(result, latent, data, t_grid, wall)
 
 
 def synthetic_ode2_data(genes: int, timepoints: int, seed: int, dtype, device):
@@ -725,14 +739,10 @@ def run_dense_second_order(config: cfg.RunConfig) -> DenseRun:
     if config.mll_engine == "ss":
         engine = ss_engine(config)
         ss_stats, forward_s = [], []
-
-        def objective(r):
-            ts = time.perf_counter()
-            loss = -ss_ops.lfm2_mll_ss(
-                simm2.constrain(r), tgrid, y, jitter=config.exact_jitter,
-                force_kernel=config.force_kernel, stationary_after=config.stationary_after)
-            forward_s.append(time.perf_counter() - ts)
-            return loss
+        objective = _ss_objective(lambda r: -ss_ops.lfm2_mll_ss(
+            simm2.constrain(r), tgrid, y, jitter=config.exact_jitter,
+            force_kernel=config.force_kernel, stationary_after=config.stationary_after),
+            forward_s)
     else:
         engine = "order-2 table Gram, Cholesky engine"
 
@@ -762,8 +772,340 @@ def run_dense_second_order(config: cfg.RunConfig) -> DenseRun:
                     ss_stats=ss_stats)
 
 
+def _plot_trace(config, trace, names, default_name) -> None:
+    """A family route's parameter-trace plot, where matplotlib is installed."""
+    from dis_project_tpu_torch.reporting import plotter
+
+    plotter.plot_param_trace(trace, names, save_name=config.save_name or default_name,
+                             out_dir=config.out_dir)
+    print("Parameter trace plotted")
+
+
+def run_multiforce(config: cfg.RunConfig) -> FamilyRun:
+    """The R-force exact SIMM on the p53 data, the ``--model multisimm``
+    route (``--num-forces`` R): ``multisimm.fit`` (``generic.fit_loop``),
+    the metrics JSONL, the lengthscale and kinetics table, one latent
+    posterior per force on ``linspace(0, 13, 100)``; with matplotlib, the
+    per-force plots and the parameter trace. ``--checkpoint-dir`` is
+    refused: the JAX package's ``multisimm.fit`` raises ``NameError`` on it
+    (``multisimm.CHECKPOINT_REFUSAL``)."""
+    from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
+    from dis_project_tpu_torch.models import multisimm
+    from dis_project_tpu_torch.models.base import Gaussian
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+
+    # No p21 clamp (the distinct lengthscale inits identify the forces) and
+    # no tied-kinetics variant.
+    _check_route_flags(config, "multisimm", ((not config.fix_params, "--no-fix-params"),
+                                             (config.shared_kinetics, "--shared-kinetics")))
+    if config.num_forces < 1:
+        raise SystemExit("--num-forces must be >= 1")
+    if config.checkpoint_dir:
+        raise SystemExit(multisimm.CHECKPOINT_REFUSAL)
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    data = P53Data(replicate=config.replicate, data_dir=config.data_dir,
+                   selected_genes=config.selected_genes, source=config.data_source,
+                   seed=config.seed)
+    X, y, var = train_arrays(data, dev, dtype)
+    R = config.num_forces
+    model = multisimm.ExactMultiSIMM(num_genes=data.num_genes, num_forces=R,
+                                     jitter=config.exact_jitter)
+    print(f"Training {R}-force exact SIMM on {dev} ({dtype})...")
+    t0 = time.perf_counter()
+    result = multisimm.fit(model, multisimm.init_params(data.num_genes, R, dtype, dev), X, y,
+                           num_iters=config.num_iters, learning_rate=config.learning_rate,
+                           optimizer=config.optimizer, track_parameters=config.track_parameters,
+                           full_result=True)
+    wall = time.perf_counter() - t0
+    print(f"Trained {config.num_iters} iters in {wall:.2f}s "
+          f"(final loss {_final_loss(result.history):.6f})")
+    if config.metrics_path:
+        write_metrics(config.metrics_path, result)
+        print(f"Metrics written to {config.metrics_path}")
+    plots = _have_matplotlib()
+    tr = result.param_trace
+    if config.track_parameters and tr is not None and plots:
+        trace = {"basal": tr.basal, "decay": tr.decay,
+                 **{f"sensitivity f{r}": tr.sensitivity[:, :, r] for r in range(R)}}
+        _plot_trace(config, trace, data.gene_names, "multiforce")
+
+    params = result.params
+    print("\nlengthscales:", [round(float(ell), 4) for ell in params.lengthscale])
+    print("Gene       Basal     Decay     " + "  ".join(f"S[f{r}]   " for r in range(R)))
+    for i, g in enumerate(data.gene_names):
+        srow = "  ".join(f"{float(params.sensitivity[i, r]):<8.4f}" for r in range(R))
+        print(f"{g:<10} {float(params.basal[i]):<9.4f} {float(params.decay[i]):<9.4f} {srow}")
+
+    t_lin = torch.linspace(0.0, 13.0, 100, dtype=dtype, device=dev)
+    with torch.no_grad():
+        posts = [model.latent_predict(params, multisimm.force_rows(t_lin, r, dtype, dev),
+                                      X, y, var) for r in range(R)]
+    if plots:
+        from dis_project_tpu_torch.reporting import plotter
+
+        for r, post in enumerate(posts):
+            plotter.plot_lf(multisimm.force_rows(t_lin, r, dtype, dev), post,
+                            y_scatter=data.f_observed, scatter_times=data.timepoints,
+                            title=f"force {r}",
+                            save_name=(config.save_name or "multiforce") + f"_f{r}",
+                            out_dir=config.out_dir)
+        print(f"Per-force latent plots saved under {config.out_dir}/")
+    else:
+        print("matplotlib is not installed: the per-force latent plots are not drawn")
+    latent = Gaussian(mean=torch.stack([p.mean for p in posts]),
+                      cov=torch.stack([p.cov for p in posts]))
+    return FamilyRun(result, latent, data, t_lin, wall)
+
+
+def synthetic_multi_data(genes: int, timepoints: int, num_forces: int, seed: int, dtype,
+                         device):
+    """The dense multi-force route's dataset: ``generate_ode_multi`` at
+    genes x timepoints with R forces, one replicate, noise std 0.1,
+    oversample 4, from ``seed``."""
+    from dis_project_tpu_torch.data import synthetic
+
+    scfg = synthetic.SyntheticConfig(
+        num_genes=genes, num_timepoints=timepoints, num_replicates=1, noise_std=0.1
+    )
+    return synthetic.generate_ode_multi(torch.Generator().manual_seed(seed), scfg,
+                                        num_forces=num_forces, oversample=4, dtype=dtype,
+                                        device=device)
+
+
+def matched_force_correlations(s_fit, s_true) -> List[float]:
+    """Per-force sensitivity-column correlations under the JAX route's
+    unique greedy |corr| matching (the MLL does not change when the forces
+    are relabelled): fitted column r against its matched true column."""
+    R = s_true.shape[1]
+    cors = np.array([[float(np.corrcoef(s_fit[:, r], s_true[:, j])[0, 1]) for j in range(R)]
+                     for r in range(R)])
+    match, taken = {}, set()
+    for r, j in sorted(((r, j) for r in range(R) for j in range(R)),
+                       key=lambda rj: -abs(cors[rj])):
+        if r not in match and j not in taken:
+            match[r] = j
+            taken.add(j)
+    return [float(cors[r, match[r]]) for r in range(R)]
+
+
+def _ss_objective(loss_of, forward_s):
+    """A state-space route's objective, appending each loss's host seconds
+    to ``forward_s``."""
+    def objective(r):
+        ts = time.perf_counter()
+        loss = loss_of(r)
+        forward_s.append(time.perf_counter() - ts)
+        return loss
+    return objective
+
+
+def run_dense_multiforce(config: cfg.RunConfig) -> DenseRun:
+    """Dense multi-force run, ``--preset dense10k --model multisimm
+    --mll-engine ss``: ``generate_ode_multi`` data (R = ``--num-forces``,
+    oversample 4) at N = genes x timepoints, full-batch Adam on
+    ``ops.statespace.multisimm_mll_ss`` (``--force-kernel`` for every force,
+    ``--stationary-after``), the decay and matched per-force sensitivity
+    recovery, the dense metrics file. The JAX package cuts this fit into
+    25-step device programs for its remote-TPU transport; the history is
+    the same without the cut."""
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import multisimm
+    from dis_project_tpu_torch.ops import statespace as ss_ops
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.training import generic
+
+    R = config.num_forces
+    if R < 1:
+        raise SystemExit("--num-forces must be >= 1")
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    G, T = config.synth_genes, config.synth_timepoints
+    print(f"Sampling synthetic {R}-force ODE dataset via quadrature: {G} x {T} (N={G * T}) "
+          f"on {dev}...")
+    data = synthetic_multi_data(G, T, R, config.seed, dtype, dev)
+    X, y, var = train_arrays(data, dev, dtype)
+    tgrid = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
+    raw = multisimm.unconstrain(multisimm.init_params(G, R, dtype, dev))
+    fks = (config.force_kernel,) * R  # one prior for every force
+    ss_stats, forward_s = [], []
+    objective = _ss_objective(lambda r: -ss_ops.multisimm_mll_ss(
+        multisimm.constrain(r), tgrid, y, jitter=config.exact_jitter, force_kernels=fks,
+        stationary_after=config.stationary_after), forward_s)
+    print(f"Training (full-batch exact {R}-force MLL, {ss_engine(config)})...")
+    t0 = time.perf_counter()
+    raw, opt_state, losses, norms, step_seconds = fit_dense_adam(
+        objective, raw, config.num_iters, config.learning_rate, ss_stats, forward_s)
+    print_ss_step(ss_stats, step_seconds, T)
+    f64 = torch.float64
+    hist = torch.tensor(losses, dtype=f64)
+    print(f"Trained {config.num_iters} iters in {time.perf_counter() - t0:.2f}s "
+          f"(final loss {_final_loss(losses):.4f}, N={G * T})")
+    p = multisimm.constrain(raw)
+    res = generic.LoopResult(raw=raw, params=p, history=hist,
+                             grad_norms=torch.tensor(norms, dtype=f64), opt_state=opt_state)
+    s_true = data.params_true["sensitivity"].detach().cpu().numpy()
+    d_true = data.params_true["decay"].detach().cpu().numpy()
+    corr_d = float(np.corrcoef(p.decay.detach().cpu().numpy(), d_true)[0, 1])
+    corr_s = matched_force_correlations(p.sensitivity.detach().cpu().numpy(), s_true)
+    print(f"Ground-truth recovery: corr(decay)={corr_d:.3f} "
+          + " ".join(f"corr(S[:,{r}])={c:.3f}" for r, c in enumerate(corr_s)))
+    if config.metrics_path:
+        write_dense_metrics(config.metrics_path, hist)
+    model = multisimm.ExactMultiSIMM(num_genes=G, num_forces=R, jitter=config.exact_jitter)
+    return DenseRun(res, model, data, X, y, var, step_seconds, final_loss=_final_loss(losses),
+                    ss_stats=ss_stats)
+
+
+def run_delay(config: cfg.RunConfig) -> FamilyRun:
+    """The delayed-response exact SIMM on the p53 data, the ``--model
+    delaysimm`` route: ``delaysimm.fit`` with the p21 kinetics and delay
+    pinned when p21 is present (``fit_checkpointed`` under
+    ``--checkpoint-dir``), the metrics JSONL, the hyperparameter table and
+    ``hyperparams.csv`` (written into the working directory, as the JAX
+    route writes it), the delay table, the latent force on
+    ``latent_grid(100)``; with matplotlib, the parameter trace and the
+    latent-force plot. On the card the training Gram is K2 with K2's
+    backward, the posterior's cross-covariance K1."""
+    from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
+    from dis_project_tpu_torch.models import delaysimm
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.reporting import tables
+    from dis_project_tpu_torch.utils.test_grids import latent_grid
+
+    _check_route_flags(config, "delaysimm", ((config.shared_kinetics, "--shared-kinetics"),))
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    data = P53Data(replicate=config.replicate, data_dir=config.data_dir,
+                   selected_genes=config.selected_genes, source=config.data_source,
+                   seed=config.seed)
+    X, y, var = train_arrays(data, dev, dtype)
+    model = delaysimm.ExactDelaySIMM(num_genes=data.num_genes, jitter=config.exact_jitter)
+    has_p21 = "p21" in data.gene_names
+    print(f"Training delayed-response exact SIMM on {dev} ({dtype})...")
+    t0 = time.perf_counter()
+    result = delaysimm.fit(
+        model, delaysimm.init_params(data.num_genes, dtype, dev), X, y,
+        num_iters=config.num_iters, learning_rate=config.learning_rate,
+        fix_params=config.fix_params and has_p21,
+        clamp_gene=data.gene_names.index("p21") if has_p21 else 0,
+        optimizer=config.optimizer, track_parameters=config.track_parameters,
+        checkpoint_dir=config.checkpoint_dir, resume=config.resume, full_result=True)
+    wall = time.perf_counter() - t0
+    print(f"Trained {config.num_iters} iters in {wall:.2f}s "
+          f"(final loss {_final_loss(result.history):.6f})")
+    if config.metrics_path:
+        write_metrics(config.metrics_path, result)
+        print(f"Metrics written to {config.metrics_path}")
+    plots = _have_matplotlib()
+    tr = result.param_trace
+    if config.track_parameters and tr is not None and plots:
+        _plot_trace(config, {"basal": tr.basal, "sensitivity": tr.sensitivity,
+                             "decay": tr.decay, "delay": tr.delay}, data.gene_names, "delay")
+
+    params = result.params
+    tables.print_hyperparams(params, data, csv_path="hyperparams.csv")
+    anchor = " (anchor: p21 pinned to 0)" if config.fix_params and has_p21 else ""
+    print(f"\nper-gene transcriptional delays{anchor}:")
+    for i, g in enumerate(data.gene_names):
+        print(f"  {g:<10} {float(params.delay[i]):.4f}")
+
+    t_grid = latent_grid(100, dtype=dtype, device=dev)
+    with torch.no_grad():
+        latent = model.latent_predict(params, t_grid, X, y, var)
+    if plots:
+        from dis_project_tpu_torch.reporting import plotter
+
+        plotter.plot_lf(t_grid, latent, y_scatter=data.f_observed, scatter_times=data.timepoints,
+                        title="delayed response", save_name=config.save_name or "delay",
+                        out_dir=config.out_dir)
+        print(f"Latent-force plot saved under {config.out_dir}/")
+    else:
+        print("matplotlib is not installed: the latent-force plot is not drawn")
+    return FamilyRun(result, latent, data, t_grid, wall)
+
+
+def synthetic_delay_data(genes: int, timepoints: int, seed: int, dtype, device):
+    """The dense delay route's dataset: ``generate_ode_delay`` at
+    genes x timepoints, one replicate, noise std 0.1, oversample 4, from
+    ``seed``."""
+    from dis_project_tpu_torch.data import synthetic
+
+    scfg = synthetic.SyntheticConfig(
+        num_genes=genes, num_timepoints=timepoints, num_replicates=1, noise_std=0.1
+    )
+    return synthetic.generate_ode_delay(torch.Generator().manual_seed(seed), scfg, oversample=4,
+                                        dtype=dtype, device=device)
+
+
+def run_dense_delay(config: cfg.RunConfig) -> DenseRun:
+    """Dense delayed-response run, ``--preset dense10k --model delaysimm
+    --mll-engine ss``: ``generate_ode_delay`` data (oversample 4) at
+    N = genes x timepoints, full-batch Adam on
+    ``ops.statespace.delaysimm_mll_ss`` (T*G warped events,
+    ``--force-kernel``) with gene 0's delay pinned to raw -20 after every
+    update (the generator's anchor), the decay and delay recovery, the
+    dense metrics file. One Adam loop: the JAX package's 25-step segments
+    serve its remote-TPU transport only."""
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import delaysimm
+    from dis_project_tpu_torch.ops import statespace as ss_ops
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.training import generic
+
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    G, T = config.synth_genes, config.synth_timepoints
+    print(f"Sampling synthetic delayed-ODE dataset via quadrature: {G} x {T} (N={G * T}) "
+          f"on {dev}...")
+    data = synthetic_delay_data(G, T, config.seed, dtype, dev)
+    X, y, var = train_arrays(data, dev, dtype)
+    tgrid = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
+    raw = delaysimm.unconstrain(delaysimm.init_params(G, dtype, dev))
+
+    def pin_gene0(r):
+        dl = r.delay.clone()
+        dl[0] = delaysimm.ZERO_DELAY_RAW
+        return r._replace(delay=dl)
+
+    ss_stats, forward_s = [], []
+    objective = _ss_objective(lambda r: -ss_ops.delaysimm_mll_ss(
+        delaysimm.constrain(r), tgrid, y, jitter=config.exact_jitter,
+        force_kernel=config.force_kernel), forward_s)
+    prior = ("order-10 SDE" if config.force_kernel == "rbf"
+             else f"EXACT {config.force_kernel} prior")
+    print(f"Training (full-batch exact delayed MLL, state-space Kalman engine (O(T G), "
+          f"{prior}))...")
+    t0 = time.perf_counter()
+    raw, opt_state, losses, norms, step_seconds = fit_dense_adam(
+        objective, raw, config.num_iters, config.learning_rate, ss_stats, forward_s,
+        clamp_raw=pin_gene0)
+    print_ss_step(ss_stats, step_seconds, T * G)
+    f64 = torch.float64
+    hist = torch.tensor(losses, dtype=f64)
+    print(f"Trained {config.num_iters} iters in {time.perf_counter() - t0:.2f}s "
+          f"(final loss {_final_loss(losses):.4f}, N={G * T})")
+    p = delaysimm.constrain(raw)
+    res = generic.LoopResult(raw=raw, params=p, history=hist,
+                             grad_norms=torch.tensor(norms, dtype=f64), opt_state=opt_state)
+    d_true = data.params_true["decay"].detach().cpu().numpy()
+    del_true = data.params_true["delay"].detach().cpu().numpy()
+    del_fit = p.delay.detach().cpu().numpy()
+    corr_d = float(np.corrcoef(p.decay.detach().cpu().numpy(), d_true)[0, 1])
+    corr_del = float(np.corrcoef(del_fit, del_true)[0, 1])
+    mae_del = float(np.abs(del_fit - del_true).mean())
+    print(f"Ground-truth recovery: corr(decay)={corr_d:.3f} corr(delay)={corr_del:.3f} "
+          f"delay MAE={mae_del:.3f}")
+    if config.metrics_path:
+        write_dense_metrics(config.metrics_path, hist)
+    model = delaysimm.ExactDelaySIMM(num_genes=G, jitter=config.exact_jitter)
+    return DenseRun(res, model, data, X, y, var, step_seconds, final_loss=_final_loss(losses),
+                    ss_stats=ss_stats)
+
+
 PORTED_FLAGS = (
-    "--preset p53|p53-replicates|alfi-parity|dense10k, --model simm|simm2, "
+    "--preset p53|p53-replicates|alfi-parity|dense10k, "
+    "--model simm|simm2|multisimm|delaysimm, --num-forces, "
     "--mll-engine cholesky|cg|ss, "
     "--force-kernel, --stationary-after, "
     "--replicate, --genes, --data-dir, --data-source, --seed, --synth-genes, "
@@ -793,6 +1135,13 @@ def check_ss_flags(config: cfg.RunConfig) -> None:
                 "--stationary-after is incompatible with --ss-shard "
                 "(the sharded filter keeps per-chunk exact covariances)"
             )
+        if config.model in ("delaysimm", "nlfm"):
+            raise SystemExit(
+                "--stationary-after requires a UNIFORM-grid family "
+                "(simm/simm2/multisimm): the delay family's warped event "
+                "chain and the EKF's state-dependent prediction have no "
+                "shared-step gain fixed point"
+            )
         if config.stationary_after < 1:
             raise SystemExit("--stationary-after must be >= 1")
     if config.force_kernel != "rbf" and config.mll_engine != "ss":
@@ -813,9 +1162,21 @@ def check_model_flags(config: cfg.RunConfig) -> None:
             f"--model simm2 is not supported with --preset {config.preset} "
             "(second-order routes: the default preset, dense10k, sparse100k)"
         )
+    if config.model == "multisimm" and config.preset not in ("p53", "sparse100k", "dense10k"):
+        raise SystemExit(
+            f"--model multisimm is not supported with --preset "
+            f"{config.preset} (multi-force routes: the default preset, "
+            "dense10k with --mll-engine ss, and sparse100k)"
+        )
+    if config.model == "delaysimm" and config.preset not in ("p53", "dense10k"):
+        raise SystemExit(
+            f"--model delaysimm is not supported with --preset "
+            f"{config.preset} (delayed-response routes: the default p53 "
+            "preset, and dense10k with --mll-engine ss)"
+        )
     if config.mll_engine != "cholesky":
-        # The first-order dense route takes every engine; the second-order
-        # dense route the state-space engine only.
+        # The first-order dense route takes every engine; the other
+        # families' dense routes the state-space engine only.
         engine_ok = config.preset == "dense10k" and (
             config.model == "simm" or config.mll_engine == "ss"
         )
@@ -825,12 +1186,25 @@ def check_model_flags(config: cfg.RunConfig) -> None:
                 "the dense10k routes (--model simm: any engine; simm2/"
                 "multisimm/delaysimm: --mll-engine ss only)"
             )
+    elif config.model == "multisimm" and config.preset == "dense10k":
+        raise SystemExit(
+            "--preset dense10k --model multisimm requires --mll-engine ss "
+            "(the R-force family has no dense table Gram; the O(T) "
+            "state-space engine is the dense-scale route)"
+        )
+    elif config.model == "delaysimm" and config.preset == "dense10k":
+        raise SystemExit(
+            "--preset dense10k --model delaysimm requires --mll-engine ss "
+            "(the per-gene warp breaks the shared-grid table Gram; the "
+            "O(T G) warped-event state-space engine is the dense-scale "
+            "route)"
+        )
     check_ss_flags(config)
     dense_ss_posterior = (config.preset == "dense10k" and config.mll_engine == "ss"
-                          and config.model == "simm")
+                          and config.model in ("simm", "delaysimm"))
     if config.posterior_samples and (
         (config.preset in ("alfi-parity", "dense10k", "sparse100k") and not dense_ss_posterior)
-        or config.model == "simm2"
+        or config.model in ("simm2", "multisimm")
     ):
         raise SystemExit(
             "--posterior-samples is only supported on the exact "
@@ -871,6 +1245,10 @@ def main(argv=None):
         return out
     if config.model == "simm2":
         return run_second_order(config)
+    if config.model == "multisimm":
+        return run_multiforce(config)
+    if config.model == "delaysimm":
+        return run_delay(config)
     if config.preset == "p53-replicates":
         config.replicate = None
     return run(config)

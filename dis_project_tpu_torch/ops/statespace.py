@@ -1,9 +1,9 @@
 r"""State-space (Markovian) LFM engine: O(T) inference for the first-order
-SIMM family and the second-order (spring-damper) family by Kalman filtering
-and RTS smoothing.
+SIMM family, the second-order (spring-damper), multi-force and
+delayed-response families by Kalman filtering and RTS smoothing.
 
-Port of the first- and second-order routes of
-``dis_project_tpu/ops/statespace.py`` (same function and argument names).
+Port of those routes of ``dis_project_tpu/ops/statespace.py`` (same
+function and argument names).
 The latent force's RBF prior is approximated by a balanced order-``p``
 linear SDE (or replaced by an exact Matern SDE), the gene ODEs
 ``dx_j/dt = B_j + S_j f - D_j x_j`` are linear state evolution, so the
@@ -36,6 +36,14 @@ instead of O((GT)^3).
   v]``, m = p + 2G; the stationary blocks from batched Lyapunov solves),
   :func:`lfm2_mll_ss` and :func:`lfm2_predict_ss` on the same filters,
   schedules and smoothers.
+- The multi-force family: :func:`build_multiforce_ssm` (R independent force
+  blocks, ragged for mixed priors), :func:`multisimm_mll_ss` and
+  :func:`multisimm_predict_ss`.
+- The delay family: each (timepoint, gene) pair one filter step at its
+  warped time (:func:`_delay_event_grid`), :func:`delaysimm_mll_ss` (the
+  masked chain, or the scalar-observation chain
+  :func:`_scalar_obs_filter_ll` under the sequential filter) and
+  :func:`delaysimm_predict_ss`.
 - :func:`rts_smoother` and :func:`lfm_predict_ss`: smoothed posteriors on
   the union grid or by bridge interpolation, under ``torch.no_grad``.
 - :func:`posterior_sample_ss` (FFBS) and :func:`sample_trajectory_ss`:
@@ -326,6 +334,66 @@ def build_lfm2_ssm(alpha, omega, sens, lengthscale, order: int = 10,
     p0 = F.pad(p_ff, (0, 2 * g, 0, 2 * g))
     h_force = torch.cat([h_c, torch.zeros((2 * g,), **kw)])
     return f_aug, p_inf, p0, h_force
+
+
+def build_multiforce_ssm(decay, sens, lengthscales, order: int = 10, force_kernels=None):
+    """Augmented state-space model of the R-force SIMM (``models.multisimm``):
+    ``dx_j/dt = B_j + sum_r S_jr f_r - D_j x_j`` with R independent force
+    priors, each ``'rbf'`` (order-``order`` SDE of the Lawrence-convention
+    prior the closed forms integrate) or an exact Matern
+    (``force_kernels``, a tuple of R kinds; default all ``'rbf'``). The
+    force blocks are ragged (dims p_r) and block-diagonal; per force one
+    batched ``solve_ex`` over the genes gives the (p_r, G) cross block, and
+    the gene-gene block sums the per-force closed forms.
+
+    ``sens``: (G, R); ``lengthscales``: (R,). State ``z = [f_1-state, ...,
+    f_R-state, x (G)]``. Returns ``(F, P_inf, P0, h_forces)``, ``h_forces``
+    (R, m) reading each force out of the state."""
+    dtype, dev = decay.dtype, decay.device
+    kw = dict(dtype=dtype, device=dev)
+    g, r = sens.shape
+    if force_kernels is None:
+        force_kernels = ("rbf",) * r
+    if len(force_kernels) != r:
+        raise ValueError(f"force_kernels has {len(force_kernels)} entries for {r} forces")
+
+    h_cs, p_ffs, f_blocks = [], [], []
+    for i, kind in enumerate(force_kernels):
+        f_c, h_c, p_diag, rate = _force_system(order, kind)
+        h_cs.append(torch.as_tensor(h_c, **kw))
+        p_ffs.append(torch.as_tensor(np.diag(p_diag), **kw))
+        f_blocks.append(torch.as_tensor(f_c, **kw) * (rate / lengthscales[i]))
+    dims = [h.shape[0] for h in h_cs]
+    p_tot = sum(dims)
+    offs = np.concatenate([[0], np.cumsum(dims)])
+
+    # Row j of the gene block reads sum_r S_jr f_r, f_r = h_c_r . z_r.
+    coupling = torch.cat([sens[:, i:i + 1] * h_cs[i][None, :] for i in range(r)], dim=1)
+    f_aug = torch.cat([
+        torch.cat([torch.block_diag(*f_blocks), torch.zeros((p_tot, g), **kw)], dim=1),
+        torch.cat([coupling, -torch.diag(decay)], dim=1),
+    ], dim=0)
+
+    # Per force r: (F_r - D_j I) c_rj = -S_jr P_ff_r h_c_r, batched over j;
+    # gene-gene: (D_i + D_j) P_xx[i, j] = sum_r sym(S_ir (h_r P_fx_r)_j).
+    p_fx_parts, hp_parts = [], []
+    for i in range(r):
+        rhs = p_ffs[i] @ h_cs[i]
+        mats = f_blocks[i][None, :, :] - decay[:, None, None] * torch.eye(dims[i], **kw)
+        sol, _ = torch.linalg.solve_ex(mats, rhs.expand(g, dims[i])[..., None])
+        p_fx_i = (-sens[:, i:i + 1] * sol[..., 0]).T  # (p_i, G)
+        p_fx_parts.append(p_fx_i)
+        hp_parts.append(h_cs[i] @ p_fx_i)
+    mx = sum(sens[:, i][:, None] * hp_parts[i][None, :] for i in range(r))
+    p_xx = (mx + mx.T) / (decay[:, None] + decay[None, :])
+    p_fx = torch.cat(p_fx_parts, dim=0)  # (p_tot, G)
+    p_ff = torch.block_diag(*p_ffs)
+    p_inf = torch.cat([torch.cat([p_ff, p_fx], dim=1), torch.cat([p_fx.T, p_xx], dim=1)], dim=0)
+    p0 = F.pad(p_ff, (0, g, 0, g))
+    h_forces = torch.zeros((r, p_tot + g), **kw)
+    for i in range(r):
+        h_forces[i, offs[i]:offs[i + 1]] = h_cs[i]
+    return f_aug, p_inf, p0, h_forces
 
 
 def discretize(f_aug, p_inf, dts, max_unique: int | None = None):
@@ -953,6 +1021,128 @@ def lfm2_mll_ss(params, timepoints, y, *, jitter: float, replicates: int = 1,
     )
 
 
+def multisimm_mll_ss(params, timepoints, y, *, jitter: float, replicates: int = 1,
+                     order: int = 10, parallel=None, uniform: bool = True, shard=None,
+                     obs_mask=None, force_kernels=None, stationary_after: int | None = None):
+    """State-space MLL of the R-force family (``models.multisimm``): the
+    contract of :func:`lfm_mll_ss` with ``params`` a ``MultiSIMMParams``
+    (sensitivity (G, R), lengthscale (R,)) and ``force_kernels`` a tuple of
+    R priors (:func:`build_multiforce_ssm`). O(T (sum p_r + G)^3)."""
+    assert_full_fp32(_WHO)
+    f_aug, p_inf, p0, _ = build_multiforce_ssm(
+        params.decay, params.sensitivity, params.lengthscale, order=order,
+        force_kernels=force_kernels,
+    )
+    g = params.sensitivity.shape[0]
+    t = torch.as_tensor(timepoints)
+    h = gene_observation_matrix(p0.shape[0] - g, g, replicates, t.dtype, t.device)
+    mean_obs = (params.basal / params.decay).repeat(replicates)
+    r_var = torch.full((replicates * g,), jitter, dtype=t.dtype, device=t.device) \
+        + params.obs_stddev**2
+    return _gridded_ssm_mll(
+        f_aug, p_inf, p0, h, mean_obs, t, y, r_var,
+        parallel=parallel, uniform=uniform, shard=shard, obs_mask=obs_mask,
+        obs_slice=(p0.shape[0] - g) if replicates == 1 else None,
+        stationary_after=stationary_after,
+    )
+
+
+def _delay_event_grid(params, t, replicates: int):
+    """The delay family's observation events: gene j's observation at
+    ``t_i`` reads the shared zero-delay state at ``w_ij = max(t_i -
+    delta_j, 0)`` (``models.delaysimm``), so each (timepoint, gene) pair is
+    one filter step that observes that gene's replicate rows only.
+
+    Returns ``(ev_t, step_ids, gene_sel, order_idx)``: the T*G warped event
+    times sorted stably (equal times, such as genes clamped to t = 0, keep
+    their k = i*G + j order), each event's timepoint index, its (T*G, n_o)
+    one-gene observation selector and the sort permutation. The sort runs
+    on the device; ``ev_t`` is differentiable in ``delay`` through the
+    gathered values."""
+    g = params.decay.shape[0]
+    n_o = replicates * g
+    w = torch.maximum(t[:, None] - params.delay[None, :], torch.zeros((), dtype=t.dtype,
+                                                                       device=t.device))
+    ev_t = w.reshape(-1)  # event k = (i, j) at k = i*G + j
+    order_idx = torch.argsort(ev_t, stable=True)
+    col = torch.arange(n_o, device=t.device)
+    gene_sel = (col[None, :] % g) == (order_idx % g)[:, None]
+    return ev_t[order_idx], order_idx // g, gene_sel, order_idx
+
+
+def delaysimm_mll_ss(params, timepoints, y, *, jitter: float, replicates: int = 1,
+                     order: int = 10, parallel=None, shard=None, obs_mask=None,
+                     force_kernel: str = "rbf"):
+    """State-space MLL of the delayed-response family
+    (``models.delaysimm``): the contract of :func:`lfm_mll_ss` with
+    ``params`` a ``DelaySIMMParams``. Each (timepoint, gene) pair is one
+    warped-time filter step (:func:`_delay_event_grid`) that observes one
+    gene through a per-entry ``obs_mask``; O(T G (p+G)^3). The delays are
+    differentiable through the warped steps, so :func:`discretize` takes
+    one batched ``matrix_exp`` over the T*G events.
+
+    The sequential filter (``parallel`` resolving to it, e.g. ``False`` or
+    ``None`` on the CPU), with no ``obs_mask`` and one replicate, runs the
+    scalar-observation chain :func:`_scalar_obs_filter_ll`: every event
+    then reads exactly one state coordinate. Every other schedule runs the
+    masked chain. ``shard=`` is not yet ported."""
+    assert_full_fp32(_WHO)
+    _refuse_shard(shard)
+    g = params.decay.shape[0]
+    t = torch.as_tensor(timepoints)
+    t_steps = t.shape[0]
+    n_o = replicates * g
+    dtype, dev = t.dtype, t.device
+    f_aug, p_inf, p0, _ = build_lfm_ssm(
+        params.decay, params.sensitivity, params.lengthscale, order=order,
+        force_kernel=force_kernel,
+    )
+    h = gene_observation_matrix(p0.shape[0] - g, g, replicates, dtype, dev)
+    mean_obs = (params.basal / params.decay).repeat(replicates)
+    r_var = torch.full((n_o,), jitter, dtype=dtype, device=dev) + params.obs_stddev**2
+
+    ev_t, step_ids, gene_sel, order_idx = _delay_event_grid(params, t, replicates)
+    ys_full = y.reshape(n_o, t_steps).T - mean_obs[None, :]  # (T, n_o)
+    dts = torch.diff(ev_t, prepend=torch.zeros((1,), dtype=dtype, device=dev))
+    a, q = discretize(f_aug, p_inf, dts)
+    fil, _ = _select_schedule(parallel, ev_t.shape[0], dev)
+    if fil is kalman_filter and obs_mask is None and replicates == 1:
+        gene_ids = order_idx % g
+        return _scalar_obs_filter_ll(a, q, p0, p0.shape[0] - g + gene_ids, r_var[0],
+                                     ys_full[step_ids, gene_ids])
+    ys_ev = torch.where(gene_sel, ys_full[step_ids], torch.zeros((), dtype=dtype, device=dev))
+    om_ev = gene_sel.to(dtype)
+    if obs_mask is not None:
+        om_user = torch.as_tensor(obs_mask, dtype=dtype, device=dev).reshape(n_o, t_steps).T
+        om_ev = om_ev * om_user[step_ids]
+    _, _, ll = fil(a, q, h, r_var, ys_ev, p0, obs_mask=om_ev)
+    return ll
+
+
+def _scalar_obs_filter_ll(a, q, p0, state_idx, r_var_sc, ys_sc):
+    """Sequential Kalman MLL of a chain of scalar observations, step i
+    reading state coordinate ``state_idx[i]``: the innovation covariance is
+    a scalar, so an update is one gathered covariance column and a division
+    (the Joseph form collapses to ``P - c c^T / s``). O(T m^2) work a step
+    instead of O(m^2 G). The coordinate is gathered with ``index_select``,
+    which reads nothing on the host."""
+    m_dim = p0.shape[0]
+    m_cur = torch.zeros((m_dim,), dtype=p0.dtype, device=p0.device)
+    p_cur = p0
+    ll = torch.zeros((), dtype=p0.dtype, device=p0.device)
+    for i in range(ys_sc.shape[0]):
+        idx = state_idx[i:i + 1]
+        m_pred = a[i] @ m_cur
+        p_pred = _symmetrize(a[i] @ p_cur @ a[i].T + q[i])
+        col = p_pred.index_select(1, idx)[:, 0]
+        s = col.index_select(0, idx)[0] + r_var_sc
+        r = ys_sc[i] - m_pred.index_select(0, idx)[0]
+        m_cur = m_pred + col * (r / s)
+        p_cur = _symmetrize(p_pred - torch.outer(col, col) / s)
+        ll = ll + -0.5 * (r * r / s + torch.log(s) + LOG_2PI)
+    return ll
+
+
 def _stationary_tail_ll(a, q, h, r_var, ys_tail, m_k, p_k):
     """Frozen-gain (steady-state) likelihood of the remaining steps of a
     uniform-grid chain from the exact filtered state ``(m_k, P_k)``: the
@@ -1296,6 +1486,110 @@ def lfm2_predict_ss(params, timepoints, y, t_test, *, noise_var, replicates: int
         f_var = torch.einsum("i,tij,j->t", h_force, p_t, h_force)
         x_mean = m_t[:, p_f:p_f + g] + mean[None, :]
         x_var = torch.diagonal(p_t, dim1=1, dim2=2)[:, p_f:p_f + g]
+    return f_mean, f_var, x_mean, x_var
+
+
+def multisimm_predict_ss(params, timepoints, y, t_test, *, noise_var, replicates: int = 1,
+                         order: int = 10, obs_mask=None, parallel=None, shard=None,
+                         unique_dts=None, force_kernels=None, interp: str = "union"):
+    """Smoothed posterior of the R-force family across all forces in one
+    pass, the state-space analogue of ``ExactMultiSIMM.latent_predict`` (its
+    closed forms use the consistent force prior, so mean and variance match
+    to the SDE order's error): ``(f_mean, f_var, x_mean, x_var)``, f (R,
+    T_test) and x (T_test, G) with ``B / D`` added back. The contracts of
+    :func:`lfm_predict_ss`. Runs under ``torch.no_grad``."""
+    assert_full_fp32(_WHO)
+    _refuse_shard(shard)
+    with torch.no_grad():
+        t_train = torch.as_tensor(timepoints)
+        t_test = torch.as_tensor(t_test, dtype=t_train.dtype, device=t_train.device)
+        g = params.sensitivity.shape[0]
+        f_aug, p_inf, p0, h_forces = build_multiforce_ssm(
+            params.decay, params.sensitivity, params.lengthscale, order=order,
+            force_kernels=force_kernels,
+        )
+        p_tot = p0.shape[0] - g
+        h = gene_observation_matrix(p_tot, g, replicates, t_train.dtype, t_train.device)
+        mean = params.basal / params.decay
+        m_t, p_t = _pick_smooth(interp)(
+            f_aug, p_inf, p0, h, t_train, t_test, y, mean.repeat(replicates), noise_var,
+            obs_mask=obs_mask, parallel=parallel, unique_dts=unique_dts,
+            obs_slice=p_tot if replicates == 1 else None,
+        )
+        f_mean = (m_t @ h_forces.T).T
+        f_var = torch.einsum("ri,tij,rj->rt", h_forces, p_t, h_forces)
+        x_mean = m_t[:, p_tot:] + mean[None, :]
+        x_var = torch.diagonal(p_t, dim1=1, dim2=2)[:, p_tot:]
+    return f_mean, f_var, x_mean, x_var
+
+
+def delaysimm_predict_ss(params, timepoints, y, t_test, *, noise_var, replicates: int = 1,
+                         order: int = 10, obs_mask=None, parallel=None, shard=None,
+                         force_kernel: str = "rbf"):
+    """Smoothed posterior of the delay family in one pass, the state-space
+    analogue of ``ExactDelaySIMM.latent_predict`` and
+    ``multi_gene_predict``: ``(f_mean, f_var, x_mean, x_var)``, x (T_test,
+    G). The event grid holds the warped training observations (T*G, one
+    gene each), the warped gene reads (T_test*G, no update: gene j at tau
+    is the state's gene-j entry at ``max(tau - delta_j, 0)``) and the
+    unwarped force reads (T_test), sorted stably on the device; the filter
+    updates on the training events only. Runs under ``torch.no_grad``;
+    ``shard=`` is not yet ported."""
+    assert_full_fp32(_WHO)
+    _refuse_shard(shard)
+    with torch.no_grad():
+        g = params.decay.shape[0]
+        t_train = torch.as_tensor(timepoints)
+        dtype, dev = t_train.dtype, t_train.device
+        t_test = torch.as_tensor(t_test, dtype=dtype, device=dev)
+        t_steps, n_test = t_train.shape[0], t_test.shape[0]
+        n_o = replicates * g
+        f_aug, p_inf, p0, h_force = build_lfm_ssm(
+            params.decay, params.sensitivity, params.lengthscale, order=order,
+            force_kernel=force_kernel,
+        )
+        p_f = p0.shape[0] - g
+        h = gene_observation_matrix(p_f, g, replicates, dtype, dev)
+        mean = params.basal / params.decay
+        zero = torch.zeros((), dtype=dtype, device=dev)
+
+        w_train = torch.maximum(t_train[:, None] - params.delay[None, :], zero).reshape(-1)
+        w_test = torch.maximum(t_test[:, None] - params.delay[None, :], zero).reshape(-1)
+        ev_t = torch.cat([w_train, w_test, t_test])
+        order_idx = torch.argsort(ev_t, stable=True)
+        inv = torch.argsort(order_idx)  # original event k sits at sorted row inv[k]
+        step_tr = torch.clamp(order_idx // g, 0, t_steps - 1)
+        train = (order_idx < t_steps * g)[:, None]
+        col = torch.arange(n_o, device=dev)
+        gene_sel = (col[None, :] % g) == (order_idx % g)[:, None]
+
+        ys_full = y.reshape(n_o, t_steps).T - mean.repeat(replicates)[None, :]
+        ys_ev = torch.where(gene_sel & train, ys_full[step_tr], zero)
+        # Steps that take no update keep all-ones observation masks (their
+        # likelihood term is unused).
+        om_ev = torch.where(train, gene_sel.to(dtype), torch.ones((), dtype=dtype, device=dev))
+        if obs_mask is not None:
+            om_user = torch.as_tensor(obs_mask, dtype=dtype, device=dev).reshape(n_o, t_steps).T
+            om_ev = torch.where(train, om_ev * om_user[step_tr], om_ev)
+        nv = torch.broadcast_to(torch.as_tensor(noise_var, dtype=dtype, device=dev),
+                                (t_steps, n_o))
+        rv_ev = torch.where(train, nv[step_tr], torch.ones((), dtype=dtype, device=dev))
+
+        dts = torch.diff(ev_t[order_idx], prepend=torch.zeros((1,), dtype=dtype, device=dev))
+        a, q = discretize(f_aug, p_inf, dts)
+        fil, smo = _select_schedule(parallel, ev_t.shape[0], dev)
+        ms, ps, _ = fil(a, q, h, rv_ev, ys_ev, p0, mask=train[:, 0].to(dtype), obs_mask=om_ev)
+        ms_s, ps_s = smo(a, q, ms, ps)
+
+        force_at = inv[t_steps * g + n_test * g:]
+        f_mean = ms_s[force_at] @ h_force
+        f_var = torch.einsum("i,tij,j->t", h_force, ps_s[force_at], h_force)
+        # Gene reads: original events k = i*G + j after the training ones.
+        gene_at = inv[t_steps * g: t_steps * g + n_test * g]
+        rows = torch.arange(n_test * g, device=dev)
+        pick = p_f + torch.arange(g, device=dev).repeat(n_test)
+        x_mean = ms_s[gene_at][rows, pick].reshape(n_test, g) + mean[None, :]
+        x_var = torch.diagonal(ps_s[gene_at], dim1=1, dim2=2)[rows, pick].reshape(n_test, g)
     return f_mean, f_var, x_mean, x_var
 
 
