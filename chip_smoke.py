@@ -189,7 +189,24 @@ it on a parent tree and on this one, in turns, to compare them. Phases (each rai
    against ``ExactDelaySIMM`` at orders 8 and 12, 5e-3 and 2e-4, gradients
    5e-4, zero delays against ``lfm_mll_ss`` 1e-9). Every other path must
    run no plain VJP for the rows' gradient.
-9. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+9. The sparse variational route (:func:`sparse_phases`, no hand-written
+   kernel: every path launches none; their total wall seconds on a line of
+   its own): ``[sparse]`` (``main.main --preset sparse100k --no-x64``:
+   100 x 1000 = 1e5 rows, M = 128, B = 2048, 25 epochs; data and fit wall
+   apart, the step's ms over 50 steps with CUDA events and their spread,
+   host syncs per step (0 required, also over two epochs of
+   ``svtrainer.fit``), device busy share, peak memory, the first and last
+   epochs' mean neg-ELBO (the last below the first), the recovery
+   correlation (|corr| >= 0.9)); ``[sparse parity]`` (20 ``svtrainer.fit``
+   steps at 20 x 200 in float64, card against CPU on the same index
+   tables: history and raw leaves rel 1e-8; float32's first step rel 1e-4
+   of float64's); ``[sparse simm2]`` and ``[sparse multisimm]`` (R = 2)
+   at full width with their epochs cut (``SPARSE_VARIANT_EPOCHS``; order
+   2 also times one ``erf_complex`` call on a step's 2048 x 128
+   arguments); ``[sparse bounds]`` (``collapsed_elbo``, ``optimal_q`` and
+   the ELBO at its state, float64, card against CPU, and the ELBO at the
+   optimal q against the collapsed bound). Then the script's total time.
+10. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
 import importlib.util
@@ -708,7 +725,8 @@ def _flat_grad(grads):
 
 def count_syncs(fn):
     """``(fn(), n)``: n host synchronisations PyTorch reports during
-    ``fn()`` (``torch.cuda.set_sync_debug_mode('warn')``)."""
+    ``fn()`` (``torch.cuda.set_sync_debug_mode('warn')``; the mode's own
+    one-time notice that it is a prototype is not a synchronisation)."""
     import warnings
 
     import torch
@@ -721,7 +739,8 @@ def count_syncs(fn):
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+                    for w in caught)
 
 
 def device_busy_ms(fn):
@@ -2180,8 +2199,306 @@ def family_phases(drive, smi):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# The sparse100k configuration (BASELINE config 5 of the JAX package): 100
+# genes x 1000 timepoints (N = 1e5), M = 128 inducing points, batches of
+# 2048, 25 epochs (49 steps an epoch). The order-2 and multi-force variants
+# run at the same width with their epochs cut (SPARSE_VARIANT_EPOCHS).
+SPARSE_GENES, SPARSE_TIMEPOINTS, SPARSE_M, SPARSE_BS, SPARSE_EPOCHS = 100, 1000, 128, 2048, 25
+SPARSE_VARIANT_EPOCHS = {"simm2": 2, "multisimm": 8}
+SPARSE_TIMED_STEPS = 50
+
+
+def _svi_step_times(run, smi, tag):
+    """Per-step times of the route's SVI step on its own data at the init
+    point (SPARSE_TIMED_STEPS steps, each between CUDA events, batches
+    drawn from ``svtrainer.epoch_indices``), the host syncs per step
+    (``count_syncs``) and the device-busy share of one step
+    (``device_busy_ms``): (median ms, interquartile spread, syncs per step,
+    busy ms or None)."""
+    import torch
+
+    from dis_project_tpu_torch.models import svlfm
+    from dis_project_tpu_torch.training import svtrainer
+
+    model, X, y, var = run.model, run.X, run.y, run.var
+    n = X.shape[0]
+    config = svtrainer.SVTrainConfig(batch_size=SPARSE_BS)
+    init = svlfm.init_params(model.num_genes, model.num_inducing, dtype=X.dtype,
+                             order=model.order, num_forces=model.num_forces, device=X.device)
+    raw = svlfm.unconstrain(init)
+    opt = svtrainer.make_optimizer(config, init)
+    state = {"leaves": svtrainer.flatten(raw)}
+    state["opt"] = opt.init(state["leaves"])
+    idx = svtrainer.epoch_indices(0, 0, n, SPARSE_BS).to(X.device)
+
+    def step(b):
+        bidx = idx[b % idx.shape[0]]
+        state["leaves"], state["opt"], loss = svtrainer.svi_step(
+            model, opt, raw, n, state["leaves"], state["opt"], X[bidx], y[bidx], var[bidx])
+        return loss
+
+    for b in range(3):  # warm-up
+        step(b)
+    torch.cuda.synchronize()
+    ms = []
+    for b in range(SPARSE_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(b)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    median = statistics.median(ms)
+    q1, _, q3 = statistics.quantiles(ms, n=4)
+    _, syncs = count_syncs(lambda: [step(b) for b in range(10)])
+    busy = device_busy_ms(lambda: step(0))
+    share = "not measured (no device time in the trace)" if busy is None else \
+        f"{busy:.3f} ms busy in one step, {busy / median:.3f} of the step median"
+    print(f"[{tag}] step ms over {SPARSE_TIMED_STEPS} steps (CUDA events): median {median:.3f}, "
+          f"spread (interquartile) {q3 - q1:.3f}, min {min(ms):.3f}, max {max(ms):.3f}; host "
+          f"syncs per step {syncs / 10:.2f}; device {share} ({smi})")
+    return median, q3 - q1, syncs / 10, busy
+
+
+def _sparse_run(drive, tag, argv):
+    """``main.main`` on a sparse100k argv on the card (float32), counts from
+    0 (no kernel may launch: the route has none), with the peak memory above
+    what the script held before it."""
+    import torch
+
+    from dis_project_tpu_torch import main as port_main
+
+    dev = torch.device("cuda")
+    held = {}
+
+    def run():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held["bytes"] = torch.cuda.memory_allocated(dev)
+        return port_main.main(argv)
+
+    out = drive(tag, run, (), launch_free=True)
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["bytes"]) / 2**30
+    return out, peak_gib
+
+
+def _sparse_report(tag, out, peak_gib, smi):
+    hist = out.history
+    first, last = float(hist[0].mean()), float(hist[-1].mean())
+    finite = bool(all(math.isfinite(v) for v in hist.reshape(-1).tolist()))
+    print(f"[{tag}] N={out.X.shape[0]} M={out.model.num_inducing} R={out.model.num_forces} "
+          f"order {out.model.order}, {hist.shape[0]} epochs x {hist.shape[1]} steps f32: data "
+          f"{out.data_s:.3f} s, fit {out.fit_s:.3f} s ({1e3 * out.fit_s / hist.size:.3f} ms a "
+          f"step, the history's read included); neg-ELBO epoch means "
+          f"{[round(float(r.mean()), 1) for r in hist]}; first {first!r} last {last!r}; "
+          f"recovery corr {[round(c, 4) for c in out.corrs]}; peak memory {peak_gib:.3f} GiB; "
+          f"all finite {finite} ({smi})")
+    require(finite, f"{tag}: history not finite")
+    require(last < first, f"{tag}: last epoch's mean neg-ELBO {last} not below the first {first}")
+    return first, last
+
+
+def sparse_route(drive, smi, tmp):
+    """``[sparse]``: the full sparse100k route (first order, float32) through
+    ``main.main``: 100 x 1000 = 1e5 rows, M = 128, B = 2048, 25 epochs (1225
+    steps). Data and fit wall seconds apart, the step's time, syncs and busy
+    share, peak memory, the first and last epochs' mean neg-ELBO, the
+    recovery correlation; requires a finite history, a last epoch below the
+    first, |corr| >= 0.9 and no host sync in the steps."""
+    argv = ["--preset", "sparse100k", "--no-x64", "--out-dir", tmp,
+            "--metrics-path", os.path.join(tmp, "sparse.jsonl")]
+    out, peak_gib = _sparse_run(drive, "sparse", argv)
+    require((out.X.shape[0], out.model.num_inducing, out.history.shape) ==
+            (SPARSE_GENES * SPARSE_TIMEPOINTS, SPARSE_M, (SPARSE_EPOCHS, 49)),
+            f"sparse: not the sparse100k shape: {out.X.shape}, {out.history.shape}")
+    _sparse_report("sparse", out, peak_gib, smi)
+    require(abs(out.corrs[0]) >= 0.9, f"sparse: recovery |corr| {out.corrs[0]} < 0.9")
+    with open(os.path.join(tmp, "sparse.jsonl")) as f:
+        require(len(f.readlines()) == SPARSE_EPOCHS, "sparse: metrics file not one line an epoch")
+    median, spread, syncs, busy = _svi_step_times(out, smi, "sparse")
+    require(syncs == 0, f"sparse: {syncs} host syncs per step")
+    # The fit itself (the pinned, non-blocking copies of the index tables
+    # included) must not wait for the card either.
+    import torch
+
+    from dis_project_tpu_torch.models import svlfm
+    from dis_project_tpu_torch.training import svtrainer
+
+    init = svlfm.init_params(SPARSE_GENES, SPARSE_M, dtype=torch.float32, device=out.X.device)
+    _, fit_syncs = count_syncs(lambda: svtrainer.fit(
+        out.model, init, out.X, out.y, out.var,
+        svtrainer.SVTrainConfig(num_epochs=2, batch_size=SPARSE_BS)))
+    print(f"[sparse] host syncs in svtrainer.fit over 2 epochs (98 steps): {fit_syncs} ({smi})")
+    require(fit_syncs == 0, f"sparse: svtrainer.fit synchronised {fit_syncs} times")
+    return dict(median=median, spread=spread, busy=busy, fit_s=out.fit_s, data_s=out.data_s,
+                peak_gib=peak_gib, corr=out.corrs[0])
+
+
+def _host_rel(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(1e-300, float(np.max(np.abs(b)))))
+
+
+def sparse_parity(smi):
+    """``[sparse parity]``: 20 steps of ``svtrainer.fit`` (20 x 200 rows,
+    M = 128, batches of 400, 2 epochs) in float64 on the card and on the
+    CPU, from the same data and the same index tables: the history and every
+    raw leaf within rel 1e-8 (leaves: of their largest entry); the float32
+    card run's first-step neg-ELBO within rel 1e-4 of float64's."""
+    import torch
+
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.models import svlfm
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.training import svtrainer
+
+    G, T, M, bs = 20, 200, 128, 400
+    data = port_main.synthetic_sparse_data(G, T, 1, 1, 0, torch.float64, "cpu")
+    model = svlfm.SparseSIMM(num_genes=G, num_inducing=M, jitter=1e-6)
+    config = svtrainer.SVTrainConfig(num_epochs=2, batch_size=bs)
+    runs = {}
+    for device, dtype in (("cuda", torch.float64), ("cpu", torch.float64),
+                          ("cuda", torch.float32)):
+        X, y, var = (a.to(device) for a in train_arrays(data, "cpu", dtype))
+        init = svlfm.init_params(G, M, dtype=dtype, device=device)
+        t0 = time.perf_counter()
+        res = svtrainer.fit(model, init, X, y, var, config)
+        runs[(device, dtype)] = (res, res.history.cpu().numpy(), time.perf_counter() - t0)
+    card, host = runs[("cuda", torch.float64)], runs[("cpu", torch.float64)]
+    rel_hist = _host_rel(card[1], host[1])
+    rel_leaf = max(_host_rel(a.cpu().numpy(), b.numpy()) for a, b in zip(
+        svtrainer.flatten(card[0].raw_params), svtrainer.flatten(host[0].raw_params)))
+    f32 = runs[("cuda", torch.float32)][1]
+    rel32 = abs(float(f32[0, 0]) - float(card[1][0, 0])) / abs(float(card[1][0, 0]))
+    print(f"[sparse parity] 20 steps f64 card vs cpu: history rel {rel_hist:.3e}, raw leaves "
+          f"rel {rel_leaf:.3e} (limit 1e-8); final neg-ELBO card {card[1][-1, -1]!r} cpu "
+          f"{host[1][-1, -1]!r}; wall card {card[2]:.3f} s cpu {host[2]:.3f} s; f32 first step "
+          f"{float(f32[0, 0])!r} vs f64 {float(card[1][0, 0])!r} rel {rel32:.3e} (limit 1e-4) "
+          f"({smi})")
+    require(rel_hist <= 1e-8 and rel_leaf <= 1e-8,
+            f"sparse parity card vs cpu: history {rel_hist}, leaves {rel_leaf}")
+    require(rel32 <= 1e-4, f"sparse parity f32 first step vs f64: {rel32}")
+
+
+def sparse_variant(drive, smi, tmp, model):
+    """``[sparse simm2]`` / ``[sparse multisimm]`` (R = 2): the route's
+    other variants at full width (100 x 1000, M = 128, B = 2048, float32)
+    with their epochs cut to SPARSE_VARIANT_EPOCHS: step time, spread,
+    syncs, busy share, peak memory, the neg-ELBO trajectory and the recovery
+    correlation(s) (informational); requires a finite history and a last
+    epoch below the first. For order 2 also one ``erf_complex`` call on the
+    step's 2048 x 128 arguments."""
+    import torch
+
+    epochs = SPARSE_VARIANT_EPOCHS[model]
+    tag = f"sparse {model}"
+    print(f"[{tag}] epochs cut from {SPARSE_EPOCHS} to {epochs} ({epochs * 49} steps)")
+    argv = ["--preset", "sparse100k", "--no-x64", "--model", model, "--num-epochs", str(epochs),
+            "--out-dir", tmp]
+    out, peak_gib = _sparse_run(drive, tag, argv)
+    _sparse_report(tag, out, peak_gib, smi)
+    median, spread, syncs, busy = _svi_step_times(out, smi, tag)
+    if model == "simm2":
+        from dis_project_tpu_torch.ops.special import erf_complex
+
+        # The step's erf arguments (t - z) / l - gamma: one batch's times
+        # against the inducing grid at the init point's complex decay rate
+        # gamma = (alpha - i omega) l / 2, alpha 0.4, omega 1, l 2.
+        gen = torch.Generator().manual_seed(14)
+        bidx = torch.randint(0, out.X.shape[0], (SPARSE_BS,), generator=gen).to(out.X.device)
+        t = out.X[bidx, 0]
+        z = torch.linspace(0.0, 12.0, SPARSE_M, dtype=torch.float32, device=out.X.device)
+        args = ((t[:, None] - z[None, :]) / 2.0).to(torch.complex64) - complex(0.4, -1.0)
+        erf_ms = cuda_ms(lambda: erf_complex(args), reps=10)
+        print(f"[{tag}] erf_complex on {tuple(args.shape)} complex64 arguments: {erf_ms:.3f} ms "
+              f"({smi})")
+    return dict(median=median, spread=spread, syncs=syncs, busy=busy, peak_gib=peak_gib,
+                fit_s=out.fit_s, data_s=out.data_s, corrs=out.corrs, epochs=epochs)
+
+
+def sparse_bounds(smi):
+    """``[sparse bounds]``: the library API in float64 on the card and on
+    the CPU at 20 x 200 rows, M = 32: ``collapsed_elbo`` and the full-batch
+    ``elbo`` at ``optimal_q``'s state within rel 1e-10 of the CPU, and
+    ``optimal_q``'s (q_mu, q_sqrt) within N eps cond(B) of the CPU's (B = I +
+    A Λ^{-1} Aᵀ, its 2-norm condition number on the CPU): the card and the
+    CPU sum B's and A Λ^{-1} y's inner products of length N in different
+    orders, a relative perturbation of at most N eps, which the solve for q
+    amplifies by up to cond(B).
+    The ELBO at the optimal q equals the collapsed bound but for the floor
+    of the marginal variances at the jitter (rows at t = 0 have zero prior
+    variance; the JAX package's test_optimal_q_elbo_matches_collapsed holds
+    its 27-row problem at abs 2e-4): ELBO - collapsed + the floor's term
+    0.5 Σ (max(v, jitter) - v) / noise within rel 1e-10 of the bound."""
+    import torch
+
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import svlfm
+
+    G, T, M = 20, 200, 32
+    data = port_main.synthetic_sparse_data(G, T, 1, 1, 0, torch.float64, "cpu")
+    model = svlfm.SparseSIMM(num_genes=G, num_inducing=M, jitter=1e-6)
+    vals = {}
+    for device in ("cuda", "cpu"):
+        X, y, var = (a.to(device) for a in train_arrays(data, "cpu", torch.float64))
+        p = svlfm.init_params(G, M, dtype=torch.float64, device=device)
+        p = p._replace(kinetics=p.kinetics._replace(
+            obs_stddev=torch.tensor(0.1, dtype=torch.float64, device=device)))
+        with torch.no_grad():
+            opt = model.optimal_q(p, X, y, var)
+            A = model._proj(opt, model._luu(opt), X)
+            SA = opt.q_sqrt.T @ A
+            v = model._prior_var(opt, X) - torch.sum(A * A, 0) + torch.sum(SA * SA, 0)
+            noise = opt.kinetics.obs_stddev ** 2 + var
+            floor = 0.5 * float(torch.sum((torch.clamp_min(v, model.jitter) - v) / noise))
+            B = torch.eye(M, dtype=torch.float64, device=device) + (A / noise) @ A.T
+            vals[device] = dict(collapsed=float(model.collapsed_elbo(p, X, y, var)),
+                                elbo_opt=float(model.elbo(opt, X, y, var, n_total=X.shape[0])),
+                                q_mu=opt.q_mu.cpu().numpy(), q_sqrt=opt.q_sqrt.cpu().numpy(),
+                                floor=floor, cond=float(torch.linalg.cond(B.cpu())))
+    c, h = vals["cuda"], vals["cpu"]
+    rels = {k: abs(c[k] - h[k]) / abs(h[k]) for k in ("collapsed", "elbo_opt")}
+    q_rels = {k: _host_rel(c[k], h[k]) for k in ("q_mu", "q_sqrt")}
+    q_limit = G * T * 2.220446049250313e-16 * h["cond"]
+    gap = c["elbo_opt"] - c["collapsed"]
+    rest = abs(gap + c["floor"]) / abs(c["collapsed"])
+    print(f"[sparse bounds] f64 N={G * T} M={M}: card vs cpu rel {json.dumps(rels)} (limit "
+          f"1e-10); optimal q {json.dumps(q_rels)} (limit N eps cond(B) = {q_limit:.3e}, "
+          f"cond(B) {h['cond']:.3e}); collapsed {c['collapsed']!r}, elbo at optimal q "
+          f"{c['elbo_opt']!r}, gap {gap:.6e}, the variance floor's term {c['floor']:.6e}, "
+          f"rest rel {rest:.3e} (limit 1e-10) ({smi})")
+    require(max(rels.values()) <= 1e-10, f"sparse bounds card vs cpu: {rels}")
+    require(max(q_rels.values()) <= q_limit, f"sparse bounds optimal q card vs cpu: {q_rels}")
+    require(rest <= 1e-10, f"sparse bounds: elbo at optimal q vs collapsed, rest {rest}")
+
+
+def sparse_phases(drive, smi):
+    """The sparse100k route's phases; prints their total wall seconds."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sparse_")
+    main_run = sparse_route(drive, smi, tmp)
+    sparse_parity(smi)
+    variants = {m: sparse_variant(drive, smi, tmp, m) for m in ("simm2", "multisimm")}
+    sparse_bounds(smi)
+    shutil.rmtree(tmp)
+    print(f"[sparse] step median: simm {main_run['median']:.3f} ms (spread "
+          f"{main_run['spread']:.3f}), simm2 {variants['simm2']['median']:.3f} ms (spread "
+          f"{variants['simm2']['spread']:.3f}), multisimm (R=2) "
+          f"{variants['multisimm']['median']:.3f} ms (spread "
+          f"{variants['multisimm']['spread']:.3f}); fit 1225 steps {main_run['fit_s']:.3f} s, "
+          f"data {main_run['data_s']:.3f} s ({smi})")
+    print(f"[sparse phases] sparse, sparse parity, sparse simm2, sparse multisimm and sparse "
+          f"bounds took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
+
+    started = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -3270,6 +3587,7 @@ def main():
     ss_engine_phases(drive, ssr["dense"], smi)
     simm2_phases(drive, smi)
     family_phases(drive, smi)
+    sparse_phases(drive, smi)
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():
@@ -3305,6 +3623,7 @@ def main():
         })
     print(f"[dense] step_ms_median xla {steady_xla!r} blocked {steady_blocked!r} "
           f"peak_memory_gib xla {peak_xla!r} blocked {peak_blocked!r}")
+    print(f"[chip_smoke] total {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

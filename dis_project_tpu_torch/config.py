@@ -8,9 +8,7 @@ import argparse
 import dataclasses
 from typing import Optional, Sequence
 
-PORTED_PRESETS = ("p53", "p53-replicates", "alfi-parity", "dense10k")
-# The JAX package's other presets; the CLI names them and refuses them.
-NOT_PORTED_PRESETS = ("sparse100k",)
+PORTED_PRESETS = ("p53", "p53-replicates", "alfi-parity", "dense10k", "sparse100k")
 # Dense-route engines: 'cholesky' (the row/gridded exact route), 'cg'
 # (ops.iterative) and 'ss' (ops.statespace); the JAX package's 'dist' is
 # not ported.
@@ -25,6 +23,11 @@ NOT_PORTED_MODELS = ("nlfm",)
 
 # Exact-path jitter (reference src/main.py:41).
 EXACT_JITTER = 1e-4
+# Sparse-path jitter (tighter: SparseSIMM applies its own float32 Kuu floor).
+SPARSE_JITTER = 1e-6
+# sparse100k's synthetic shape when --synth-genes / --synth-timepoints are
+# not given (BASELINE config 5: 100 x 1000, N = 1e5).
+SPARSE_GENES, SPARSE_TIMEPOINTS = 100, 1000
 
 
 @dataclasses.dataclass
@@ -32,7 +35,8 @@ class RunConfig:
     # p53 — canonical single-replicate exact pipeline;
     # p53-replicates — all three replicates (or an ablation) through run;
     # alfi-parity — the port against the independent torch validation stack;
-    # dense10k — synthetic genes x timepoints exact-GP stress run.
+    # dense10k — synthetic genes x timepoints exact-GP stress run;
+    # sparse100k — synthetic N = 1e5 sparse variational run.
     preset: str = "p53"
     # model family: simm (first-order exact) | simm2 (second-order exact)
     # | multisimm (R independent latent forces) | delaysimm (per-gene delays)
@@ -47,6 +51,10 @@ class RunConfig:
     seed: int = 0
     synth_genes: int = 50
     synth_timepoints: int = 200
+    # sparse variational settings (sparse100k preset)
+    num_inducing: int = 128
+    batch_size: int = 2048
+    num_epochs: int = 25
     # dense10k MLL engine: cholesky (exact) | cg (batched CG + SLQ) | ss
     # (state-space Kalman engine, O(T))
     mll_engine: str = "cholesky"
@@ -56,7 +64,10 @@ class RunConfig:
     force_kernel: str = "rbf"
     # state-space engine: freeze the Kalman gain after this many exact steps
     stationary_after: Optional[int] = None
-    # None = the exact-path default 1e-4 (exact_jitter)
+    # sparse path: data-parallel SVI (not yet ported)
+    dp_shard: bool = False
+    # None = the path default: 1e-4 exact (exact_jitter), 1e-6 sparse
+    # (sparse_jitter)
     jitter: Optional[float] = None
     # tie B/S/D across genes (shared-vs-per-gene kinetics ablation)
     shared_kinetics: bool = False
@@ -85,15 +96,20 @@ class RunConfig:
         """--jitter, or the exact-path default 1e-4 when not given."""
         return self.jitter if self.jitter is not None else EXACT_JITTER
 
+    @property
+    def sparse_jitter(self) -> float:
+        """--jitter, or the sparse-path default 1e-6 when not given."""
+        return self.jitter if self.jitter is not None else SPARSE_JITTER
+
 
 def add_cli_args(parser: argparse.ArgumentParser) -> None:
     d = RunConfig()
     parser.add_argument("--preset", default=d.preset,
-                        choices=PORTED_PRESETS + NOT_PORTED_PRESETS,
+                        choices=PORTED_PRESETS,
                         help="p53 (canonical), p53-replicates (all replicates), "
-                        "alfi-parity (the torch validation stack's gates) or "
-                        "dense10k (N = genes x timepoints exact stress run); "
-                        "sparse100k is not yet ported")
+                        "alfi-parity (the torch validation stack's gates), "
+                        "dense10k (N = genes x timepoints exact stress run) or "
+                        "sparse100k (minibatch SVI on a sparse variational bound)")
     parser.add_argument("--model", default=d.model,
                         choices=PORTED_MODELS + NOT_PORTED_MODELS,
                         help="model family: 'simm' (first-order exact), 'simm2' "
@@ -111,10 +127,16 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--data-source", default=d.data_source,
                         choices=["auto", "csv", "synthetic"])
     parser.add_argument("--seed", type=int, default=d.seed)
-    parser.add_argument("--synth-genes", type=int, default=d.synth_genes,
-                        help=f"dense10k gene count (default {d.synth_genes})")
-    parser.add_argument("--synth-timepoints", type=int, default=d.synth_timepoints,
-                        help=f"dense10k timepoint count (default {d.synth_timepoints})")
+    # Default None: sparse100k has its own shape.
+    parser.add_argument("--synth-genes", type=int, default=None,
+                        help=f"synthetic gene count (default {d.synth_genes}; "
+                        f"sparse100k: {SPARSE_GENES})")
+    parser.add_argument("--synth-timepoints", type=int, default=None,
+                        help=f"synthetic timepoint count (default {d.synth_timepoints}; "
+                        f"sparse100k: {SPARSE_TIMEPOINTS})")
+    parser.add_argument("--num-inducing", type=int, default=d.num_inducing)
+    parser.add_argument("--batch-size", type=int, default=d.batch_size)
+    parser.add_argument("--num-epochs", type=int, default=d.num_epochs)
     parser.add_argument("--mll-engine", default=d.mll_engine,
                         choices=PORTED_ENGINES + NOT_PORTED_ENGINES,
                         help="dense10k MLL engine: 'cholesky' (exact), 'cg' "
@@ -132,8 +154,12 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--stationary-after", type=int, default=d.stationary_after,
                         help="state-space engine: freeze the Kalman gain after this "
                         "many exact warmup steps (requires --mll-engine ss)")
+    parser.add_argument("--dp-shard", action="store_true",
+                        help="sparse path: data-parallel SVI (not yet ported; "
+                        "requires --preset sparse100k)")
     parser.add_argument("--jitter", type=float, default=d.jitter,
-                        help="diagonal jitter (default 1e-4)")
+                        help="diagonal jitter (default: 1e-4 exact paths, "
+                        "1e-6 sparse path)")
     parser.add_argument("--num-iters", type=int, default=d.num_iters,
                         help=f"optimisation steps (default {d.num_iters})")
     parser.add_argument("--learning-rate", type=float, default=d.learning_rate)
@@ -161,6 +187,7 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
+    sparse = args.preset == "sparse100k"
     return RunConfig(
         preset=args.preset,
         model=args.model,
@@ -170,12 +197,18 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         data_dir=args.data_dir,
         data_source=args.data_source,
         seed=args.seed,
-        synth_genes=args.synth_genes,
-        synth_timepoints=args.synth_timepoints,
+        synth_genes=(args.synth_genes if args.synth_genes is not None
+                     else SPARSE_GENES if sparse else RunConfig.synth_genes),
+        synth_timepoints=(args.synth_timepoints if args.synth_timepoints is not None
+                          else SPARSE_TIMEPOINTS if sparse else RunConfig.synth_timepoints),
+        num_inducing=args.num_inducing,
+        batch_size=args.batch_size,
+        num_epochs=args.num_epochs,
         mll_engine=args.mll_engine,
         ss_shard=args.ss_shard,
         force_kernel=args.force_kernel,
         stationary_after=args.stationary_after,
+        dp_shard=args.dp_shard,
         jitter=args.jitter,
         shared_kinetics=args.shared_kinetics,
         num_iters=args.num_iters,

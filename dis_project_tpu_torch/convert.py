@@ -81,3 +81,42 @@ def guard_from_numpy(good_raw, good_adam, streak, count, device=None, dtype=PARI
     good = (params_from_numpy(good_raw, device, dtype),
             adam_state_from_numpy(*good_adam, device=device, dtype=dtype))
     return good, int(np.asarray(streak)), int(np.asarray(count))
+
+
+def svlfm_params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE):
+    """The sparse family's ``SVLFMParams`` from a mapping with ``kinetics``
+    (a mapping of the kinetics' field names, e.g.
+    ``jax_params.kinetics._asdict()``), ``z``, ``q_mu`` and ``q_sqrt``;
+    values are array-likes. The kinetics' type follows their fields:
+    ``alpha`` makes ``SIMM2Params``, a 2-D sensitivity ``MultiSIMMParams``,
+    anything else ``SIMMParams``."""
+    from dis_project_tpu_torch.models.svlfm import SVLFMParams
+
+    kin = mapping["kinetics"]
+    if "alpha" in kin:
+        kinetics = simm2_params_from_numpy(kin, device, dtype)
+    elif np.ndim(kin["sensitivity"]) == 2:
+        kinetics = multisimm_params_from_numpy(kin, device, dtype)
+    else:
+        kinetics = params_from_numpy(kin, device, dtype)
+    dev = default_device(device)
+    return SVLFMParams(kinetics, *(
+        torch.as_tensor(np.array(mapping[f]), dtype=dtype, device=dev)
+        for f in ("z", "q_mu", "q_sqrt")))
+
+
+def sv_adam_state_from_numpy(count, mu, nu, train_z: bool = True, device=None,
+                             dtype=PARITY_DTYPE):
+    """The port's SVI Adam state (``training.svtrainer.make_optimizer``'s)
+    from optax's ``ScaleByAdamState`` over ``SVLFMParams``: ``mu`` and
+    ``nu`` are mappings as for :func:`svlfm_params_from_numpy`. With
+    ``train_z=False`` (z frozen by ``optax.multi_transform``) they hold no
+    ``z``, and neither does the port's state."""
+    from dis_project_tpu_torch.training import svtrainer
+    from dis_project_tpu_torch.training.generic import AdamState
+
+    def leaves(m):
+        m = {**m, "z": m.get("z", np.zeros(0))}
+        return svtrainer.flatten(svlfm_params_from_numpy(m, device, dtype), train_z)
+
+    return AdamState(int(np.asarray(count)), leaves(mu), leaves(nu))

@@ -1,7 +1,7 @@
 r"""Synthetic LFM data for the dense stress configurations.
 
-Port of four generators of ``dis_project_tpu/data/synthetic.py`` (the
-other ODE quadrature generators come with their model families):
+Port of five generators of ``dis_project_tpu/data/synthetic.py`` (the
+nonlinear-response generator comes with its model family):
 
 - :func:`sample_prior`: an exact joint draw from the first-order SIMM GP
   prior using the port's own closed-form kernels. Replicates share one
@@ -9,6 +9,10 @@ other ODE quadrature generators come with their model families):
   replicate. The prior Gram is near-low-rank, so its build and Cholesky run
   in float64 whatever the working dtype (an f32 factorisation fails
   outright); on the card they run there in f64.
+- :func:`generate_ode`: the first-order quadrature oracle of the sparse
+  route: a force drawn from the consistent RBF prior on a fine grid, pushed
+  through each gene's ODE by the exponential-kernel trapezoid rule (host
+  float64); no closed-form kernel on this path.
 - :func:`generate_ode2`: the second-order (spring-damper) quadrature
   oracle: a force drawn from the consistent RBF prior on a fine grid,
   pushed through the damped oscillator by trapezoid convolution with its
@@ -24,11 +28,11 @@ other ODE quadrature generators come with their model families):
 Randomness comes from an explicit ``torch.Generator``; the draws are made on
 the CPU, so a seed gives the same data on every device. The JAX package's
 ``jax.random`` stream cannot be reproduced, so each generator is split into
-its draws (:func:`prior_draws`, :func:`ode2_draws`, :func:`multi_draws`,
-:func:`delay_draws`) and a deterministic function of them
-(:func:`prior_from_draws`, :func:`ode2_from_draws`,
-:func:`multi_from_draws`, :func:`delay_from_draws`), to which parity tests
-hand JAX-made draws.
+its draws (:func:`prior_draws`, :func:`ode_draws`, :func:`ode2_draws`,
+:func:`multi_draws`, :func:`delay_draws`) and a deterministic function of
+them (:func:`prior_from_draws`, :func:`ode_from_draws`,
+:func:`ode2_from_draws`, :func:`multi_from_draws`, :func:`delay_from_draws`),
+to which parity tests hand JAX-made draws.
 """
 
 from __future__ import annotations
@@ -238,6 +242,63 @@ def _ode_data(x, f_true, noise, params, cfg, dtype, device):
 def _param(a, dtype, device):
     a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.array(a))
     return a.to(dtype=dtype, device=device)
+
+
+def ode_draws(generator: torch.Generator, cfg: SyntheticConfig, oversample: int = 16,
+              dtype=PARITY_DTYPE):
+    """Every random draw of :func:`generate_ode`, on the CPU: the kinetics
+    uniforms (basal, sensitivity, decay) in ``dtype``, then the float32
+    standard normals of the fine-grid force (n_fine,) and of the noise
+    (R, G, T)."""
+    G, T, R = cfg.num_genes, cfg.num_timepoints, cfg.num_replicates
+    k = _sample_kinetics(generator, cfg, dtype)
+    eps = torch.randn((T - 1) * oversample + 1, generator=generator, dtype=torch.float32)
+    noise = torch.randn(R, G, T, generator=generator, dtype=torch.float32)
+    return k["basal"], k["sensitivity"], k["decay"], eps, noise
+
+
+def ode_from_draws(basal, sens, decay, eps, noise, cfg: SyntheticConfig,
+                   oversample: int = 16, response=None, dtype=PARITY_DTYPE,
+                   device="cpu") -> SyntheticLFMData:
+    r"""The first-order data of :func:`generate_ode` from given draws
+    (tensors or numpy arrays): the force ``L_f eps`` on the fine grid
+    (``(T-1) oversample + 1`` points), and each gene
+
+    .. math:: x_j(t) = \frac{B_j}{D_j} + S_j e^{-D_j t}
+        \int_0^t e^{D_j u} g(f(u))\,du
+
+    by the cumulative trapezoid rule (host float64), read every
+    ``oversample`` points, plus ``noise_std`` times the noise draws.
+    ``response`` is ``g``, a function of a float64 numpy array (None: the
+    identity); ``f_true`` is the force f before the response."""
+    params = {
+        "basal": _param(basal, dtype, device),
+        "sensitivity": _param(sens, dtype, device),
+        "decay": _param(decay, dtype, device),
+        "lengthscale": torch.tensor(cfg.lengthscale, dtype=dtype, device=device),
+    }
+    n_fine = (cfg.num_timepoints - 1) * oversample + 1
+    t_fine = np.linspace(0.0, cfg.t_max, n_fine)
+    f_fine = _fine_force(eps, float(params["lengthscale"]), t_fine)
+    g_fine = f_fine if response is None else np.asarray(response(f_fine), np.float64)
+    x_fine = _first_order_response(_host64(params["basal"]), _host64(params["decay"]),
+                                   g_fine[None, :], t_fine,
+                                   sens=_host64(params["sensitivity"]))
+    return _ode_data(x_fine[:, ::oversample], f_fine[::oversample], noise, params, cfg, dtype,
+                     device)
+
+
+def generate_ode(generator: torch.Generator, cfg: Optional[SyntheticConfig] = None,
+                 oversample: int = 16, dtype=PARITY_DTYPE, device=None) -> SyntheticLFMData:
+    r"""First-order quadrature oracle at ``cfg``'s shape,
+    :math:`\dot x_j = B_j + S_j f(t) - D_j x_j` with x_j(0) = B_j / D_j,
+    against a force from the consistent RBF prior on a grid ``oversample``
+    times finer than the outputs (:func:`ode_from_draws`). Runs on
+    ``device`` (default: the card); the quadrature is host float64."""
+    cfg = cfg or SyntheticConfig()
+    dev = default_device(device)
+    return ode_from_draws(*ode_draws(generator, cfg, oversample, dtype), cfg, oversample,
+                          dtype=dtype, device=dev)
 
 
 # The second-order generator's kinetics ranges (JAX generate_ode2's defaults).

@@ -59,6 +59,16 @@ says otherwise:
   ``ops.statespace.delaysimm_mll_ss`` over T*G warped events, gene 0's delay
   pinned, decay and delay recovery).
 
+- ``--preset sparse100k`` (:func:`run_sparse`, BASELINE config 5): ODE
+  quadrature data (``generate_ode``; ``generate_ode2`` with ``--model
+  simm2``, ``generate_ode_multi`` with ``--model multisimm``) at 100 x 1000
+  = 1e5 rows unless ``--synth-genes`` / ``--synth-timepoints`` say
+  otherwise, minibatch SVI on the whitened inducing-point ELBO
+  (``models.svlfm.SparseSIMM``, ``training.svtrainer.fit``: ``--num-inducing``,
+  ``--batch-size``, ``--num-epochs``), the latent posterior on the
+  timepoint grid, its recovery correlation (matched per force) and plot,
+  the per-epoch metrics file. No hand-written kernel runs on it.
+
 Every other preset, engine, model family and flag of the JAX CLI fails with
 "not yet ported".
 """
@@ -772,6 +782,148 @@ def run_dense_second_order(config: cfg.RunConfig) -> DenseRun:
                     ss_stats=ss_stats)
 
 
+@dataclasses.dataclass
+class SparseRun:
+    """The sparse route's fit, its latent posteriors and data."""
+
+    result: Any  # training.svtrainer.SVTrainResult
+    model: Any  # models.svlfm.SparseSIMM
+    data: Any  # data.synthetic.SyntheticLFMData
+    X: torch.Tensor
+    y: torch.Tensor
+    var: torch.Tensor
+    history: np.ndarray  # (num_epochs, batches) negative ELBO, on the host
+    t_grid: torch.Tensor
+    latent: List[Any]  # one models.base.Gaussian per force
+    corrs: List[float]  # each force's recovery correlation (matched when R > 1)
+    data_s: float  # wall seconds of the data generation
+    fit_s: float  # wall seconds of the fit, the history's read included
+
+
+def synthetic_sparse_data(genes: int, timepoints: int, order: int, num_forces: int, seed: int,
+                          dtype, device):
+    """The sparse route's dataset: ``generate_ode`` (``generate_ode2`` for
+    order 2, ``generate_ode_multi`` for R > 1 forces) at genes x timepoints,
+    one replicate, noise std 0.1, oversample 4 (keeps the fine-grid force's
+    Cholesky tractable at 1000 timepoints), from ``seed``."""
+    from dis_project_tpu_torch.data import synthetic
+
+    scfg = synthetic.SyntheticConfig(
+        num_genes=genes, num_timepoints=timepoints, num_replicates=1, noise_std=0.1
+    )
+    gen = torch.Generator().manual_seed(seed)
+    if num_forces > 1:
+        return synthetic.generate_ode_multi(gen, scfg, num_forces=num_forces, oversample=4,
+                                            dtype=dtype, device=device)
+    if order == 2:
+        return synthetic.generate_ode2(gen, scfg, oversample=4, dtype=dtype, device=device)
+    return synthetic.generate_ode(gen, scfg, oversample=4, dtype=dtype, device=device)
+
+
+def match_forces(cors: np.ndarray) -> dict:
+    """The JAX route's unique greedy matching of posterior forces (rows) to
+    generating forces (columns) by |corr|, best first: the ELBO does not
+    change when the forces are relabelled, and an independent argmax per
+    force could map two posteriors onto the same truth."""
+    R = cors.shape[0]
+    match, taken = {}, set()
+    for r, j in sorted(((r, j) for r in range(R) for j in range(R)),
+                       key=lambda rj: -abs(cors[rj])):
+        if r not in match and j not in taken:
+            match[r] = j
+            taken.add(j)
+    return match
+
+
+def run_sparse(config: cfg.RunConfig) -> SparseRun:
+    """Sparse variational stress run (BASELINE config 5): quadrature data
+    at N up to 1e5 (:func:`synthetic_sparse_data`), minibatch SVI on the
+    whitened ELBO with latent-force inducing points (``SparseSIMM`` with
+    ``--jitter`` or 1e-6, ``svtrainer.fit``), the latent posterior on the
+    T-point grid with its recovery correlation (R forces: JAX's unique
+    greedy matching, one line and one plot per force), the plots where
+    matplotlib is installed, and one ``{epoch, neg_elbo_mean}`` line per
+    epoch in ``--metrics-path``."""
+    from dis_project_tpu_torch.data import synthetic
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import svlfm
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.training import svtrainer
+
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    G, T = config.synth_genes, config.synth_timepoints
+    order = 2 if config.model == "simm2" else 1
+    n_forces = config.num_forces if config.model == "multisimm" else 1
+    kind = f"{n_forces}-force order-1" if n_forces > 1 else f"order-{order}"
+    print(f"Sampling synthetic {kind} ODE dataset via quadrature: {G} x {T} (N={G * T})...")
+    t0 = time.perf_counter()
+    data = synthetic_sparse_data(G, T, order, n_forces, config.seed, dtype, dev)
+    X, y, var = train_arrays(data, dev, dtype)
+    data_s = time.perf_counter() - t0
+
+    model = svlfm.SparseSIMM(num_genes=G, num_inducing=config.num_inducing,
+                             jitter=config.sparse_jitter, order=order, num_forces=n_forces)
+    t_max = synthetic.SyntheticConfig.t_max
+    params = svlfm.init_params(G, config.num_inducing, t_max=t_max, dtype=dtype, order=order,
+                               num_forces=n_forces, device=dev)
+    print(f"Training SVI: {config.num_epochs} epochs, batch {config.batch_size}, "
+          f"M={config.num_inducing} inducing points...")
+    t0 = time.perf_counter()
+    res = svtrainer.fit(model, params, X, y, var, svtrainer.SVTrainConfig(
+        num_epochs=config.num_epochs, batch_size=config.batch_size,
+        learning_rate=config.learning_rate, seed=config.seed))
+    hist = res.history.detach().cpu().numpy()
+    fit_s = time.perf_counter() - t0
+    print(f"Trained {hist.size} minibatch steps in {fit_s:.2f}s "
+          f"(neg-ELBO first epoch {hist[0].mean():.1f} -> "
+          f"last epoch {hist[-1].mean():.1f})")
+
+    t_grid = torch.as_tensor(np.linspace(0.0, t_max, T), dtype=dtype, device=dev)
+    f_true = data.f_true.detach().cpu().numpy().reshape(n_forces, T)
+    with torch.no_grad():
+        posts = [model.latent_predict(res.params, t_grid, force=r) for r in range(n_forces)]
+    means = [p.mean.detach().cpu().numpy() for p in posts]
+    plots = _have_matplotlib()
+    if plots:
+        from dis_project_tpu_torch.reporting import plotter
+    if n_forces > 1:
+        cors = np.array([[float(np.corrcoef(m, f_true[j])[0, 1]) for j in range(n_forces)]
+                         for m in means])
+        match = match_forces(cors)
+        corrs = []
+        for r, post in enumerate(posts):
+            best = match[r]
+            corrs.append(float(cors[r, best]))
+            print(f"Latent force {r} recovery: corr {cors[r, best]:+.3f} "
+                  f"(vs generating force {best})")
+            if plots:
+                plotter.plot_lf(torch.stack([t_grid, torch.full_like(t_grid, r),
+                                             torch.zeros_like(t_grid)], -1),
+                                post, y_scatter=np.sign(cors[r, best]) * f_true[best],
+                                scatter_times=data.timepoints, title=f"force {r}",
+                                save_name=(config.save_name or "sparse_lf") + f"_f{r}",
+                                out_dir=config.out_dir)
+    else:
+        corrs = [float(np.corrcoef(means[0], f_true[0])[0, 1])]
+        print(f"Latent-force recovery correlation vs generating force: {corrs[0]:.3f}")
+        if plots:
+            plotter.plot_lf(torch.stack([t_grid, -torch.ones_like(t_grid),
+                                         torch.zeros_like(t_grid)], -1),
+                            posts[0], y_scatter=f_true.reshape(1, 1, -1),
+                            scatter_times=data.timepoints,
+                            save_name=config.save_name or "sparse_lf", out_dir=config.out_dir)
+    if plots:
+        print(f"Latent-force recovery plot saved under {config.out_dir}/")
+    else:
+        print("matplotlib is not installed: the latent-force recovery plot is not drawn")
+    if config.metrics_path:
+        with open(config.metrics_path, "w") as f:
+            for e, row in enumerate(hist):
+                f.write(json.dumps({"epoch": e, "neg_elbo_mean": float(row.mean())}) + "\n")
+    return SparseRun(res, model, data, X, y, var, hist, t_grid, posts, corrs, data_s, fit_s)
+
+
 def _plot_trace(config, trace, names, default_name) -> None:
     """A family route's parameter-trace plot, where matplotlib is installed."""
     from dis_project_tpu_torch.reporting import plotter
@@ -880,12 +1032,7 @@ def matched_force_correlations(s_fit, s_true) -> List[float]:
     R = s_true.shape[1]
     cors = np.array([[float(np.corrcoef(s_fit[:, r], s_true[:, j])[0, 1]) for j in range(R)]
                      for r in range(R)])
-    match, taken = {}, set()
-    for r, j in sorted(((r, j) for r in range(R) for j in range(R)),
-                       key=lambda rj: -abs(cors[rj])):
-        if r not in match and j not in taken:
-            match[r] = j
-            taken.add(j)
+    match = match_forces(cors)
     return [float(cors[r, match[r]]) for r in range(R)]
 
 
@@ -1104,7 +1251,8 @@ def run_dense_delay(config: cfg.RunConfig) -> DenseRun:
 
 
 PORTED_FLAGS = (
-    "--preset p53|p53-replicates|alfi-parity|dense10k, "
+    "--preset p53|p53-replicates|alfi-parity|dense10k|sparse100k, "
+    "--num-inducing, --batch-size, --num-epochs, "
     "--model simm|simm2|multisimm|delaysimm, --num-forces, "
     "--mll-engine cholesky|cg|ss, "
     "--force-kernel, --stationary-after, "
@@ -1168,6 +1316,12 @@ def check_model_flags(config: cfg.RunConfig) -> None:
             f"{config.preset} (multi-force routes: the default preset, "
             "dense10k with --mll-engine ss, and sparse100k)"
         )
+    if config.model == "nlfm" and config.preset not in ("p53", "dense10k"):
+        raise SystemExit(
+            f"--model nlfm is not supported with --preset {config.preset} "
+            "(nonlinear-response routes: the default p53 preset, and "
+            "dense10k with --mll-engine ss)"
+        )
     if config.model == "delaysimm" and config.preset not in ("p53", "dense10k"):
         raise SystemExit(
             f"--model delaysimm is not supported with --preset "
@@ -1199,7 +1353,18 @@ def check_model_flags(config: cfg.RunConfig) -> None:
             "O(T G) warped-event state-space engine is the dense-scale "
             "route)"
         )
+    elif config.model == "nlfm" and config.preset == "dense10k":
+        raise SystemExit(
+            "--preset dense10k --model nlfm requires --mll-engine ss "
+            "(no closed-form Gram exists for the nonlinear family; the "
+            "extended Kalman engine is the dense-scale marginal route)"
+        )
     check_ss_flags(config)
+    if config.dp_shard and config.preset != "sparse100k":
+        raise SystemExit(
+            "--dp-shard requires --preset sparse100k (it shards the SVI "
+            "minibatch's row axis over the device mesh)"
+        )
     dense_ss_posterior = (config.preset == "dense10k" and config.mll_engine == "ss"
                           and config.model in ("simm", "delaysimm"))
     if config.posterior_samples and (
@@ -1223,11 +1388,9 @@ def main(argv=None):
         raise SystemExit(f"{' '.join(unknown)}: not yet ported to dis_project_tpu_torch "
                          f"(ported flags: {PORTED_FLAGS})")
     config = cfg.config_from_args(args)
+    check_model_flags(config)
     if config.model in cfg.NOT_PORTED_MODELS:
         raise SystemExit(f"--model {config.model} is not yet ported")
-    check_model_flags(config)
-    if config.preset in cfg.NOT_PORTED_PRESETS:
-        raise SystemExit(f"--preset {config.preset} is not yet ported")
     if config.mll_engine in cfg.NOT_PORTED_ENGINES:
         raise SystemExit(f"--mll-engine {config.mll_engine} is not yet ported")
     if config.resume and not config.checkpoint_dir:
@@ -1236,6 +1399,9 @@ def main(argv=None):
         raise SystemExit("--ss-shard (the temporally-sharded filter) is not yet ported")
     if config.posterior_samples:
         raise SystemExit("--posterior-samples (HMC) is not yet ported")
+    if config.dp_shard:
+        raise SystemExit("--dp-shard (data-parallel SVI) is not yet ported "
+                         "(ROADMAP Queue 1 item 17)")
     if config.preset == "alfi-parity":
         return run_alfi_parity(config)
     if config.preset == "dense10k":
@@ -1243,6 +1409,8 @@ def main(argv=None):
         if config.mll_engine == "ss" and config.model == "simm":
             dense_ss_report(config, out)
         return out
+    if config.preset == "sparse100k":
+        return run_sparse(config)
     if config.model == "simm2":
         return run_second_order(config)
     if config.model == "multisimm":

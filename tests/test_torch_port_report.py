@@ -328,6 +328,8 @@ ARGVS = [
     ["--preset", "alfi-parity", "--data-source", "synthetic", "--data-dir", "d",
      "--out-dir", "o", "--save-name", "s", "--checkpoint-dir", "c", "--resume",
      "--metrics-path", "m.jsonl"],
+    ["--preset", "sparse100k", "--num-inducing", "64", "--batch-size", "512",
+     "--num-epochs", "3", "--dp-shard", "--jitter", "1e-5"],
 ]
 
 
@@ -344,16 +346,19 @@ def test_flag_parsing_matches_jax(argv):
     for name in sorted(common):
         assert getattr(got, name) == getattr(ref, name), name
     assert got.exact_jitter == ref.exact_jitter
+    assert got.sparse_jitter == ref.sparse_jitter
 
 
 @pytest.mark.parametrize("argv", [
-    ["--preset", "sparse100k"],
+    # The sparse route is ported; its data-parallel SVI is not.
+    pytest.param(["--preset", "sparse100k", "--dp-shard"], id="--preset sparse100k"),
     # The ss engine is ported; its temporally-sharded filter is not.
     pytest.param(["--preset", "dense10k", "--mll-engine", "ss", "--ss-shard"],
                  id="--preset dense10k --mll-engine ss"),
     ["--preset", "dense10k", "--mll-engine", "dist"],
-    # The second-order family is ported; its sparse100k route is not.
-    pytest.param(["--model", "simm2", "--preset", "sparse100k"], id="--model simm2"),
+    # The second-order sparse100k route is ported; its data-parallel SVI is not.
+    pytest.param(["--model", "simm2", "--preset", "sparse100k", "--dp-shard"],
+                 id="--model simm2"),
     ["--preset", "p53-replicates", "--ensemble"], ["--posterior-samples", "5"],
     ["--platform", "cpu"], ["--mesh-shape", "4,2"],
 ], ids=lambda a: " ".join(a))

@@ -480,10 +480,11 @@ def test_cli_dense_route_on_cpu():
 
 
 @pytest.mark.parametrize("argv", [
-    # The second-order family is ported; its sparse100k route is not.
-    pytest.param(["--model", "simm2", "--preset", "sparse100k"], id="--model simm2"),
+    # The sparse100k routes are ported; their data-parallel SVI is not.
+    pytest.param(["--model", "simm2", "--preset", "sparse100k", "--dp-shard"],
+                 id="--model simm2"),
     ["--preset", "dense10k", "--mll-engine", "dist"],
-    ["--posterior-samples", "5"], ["--preset", "sparse100k"],
+    ["--posterior-samples", "5"], ["--preset", "sparse100k", "--dp-shard"],
     ["--preset", "p53-replicates", "--ensemble"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):
