@@ -205,8 +205,25 @@ it on a parent tree and on this one, in turns, to compare them. Phases (each rai
    2 also times one ``erf_complex`` call on a step's 2048 x 128
    arguments); ``[sparse bounds]`` (``collapsed_elbo``, ``optimal_q`` and
    the ELBO at its state, float64, card against CPU, and the ELBO at the
-   optimal q against the collapsed bound). Then the script's total time.
-10. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+   optimal q against the collapsed bound).
+10. The nonlinear-response family (:func:`nlfm_phases`, no hand-written
+    kernel: every path launches none; their total wall seconds on a line
+    of its own): ``[nlfm p53]`` (``main.run_nonlinear``, Q = 97, exp, the
+    p21 pin, float64: its first 150 steps on the card and on the CPU, first
+    step rel 1e-10, final loss rel 1e-6; ``laplace_posteriors`` card vs CPU
+    at the CPU's MAP point rel 1e-8; then ``main.main(["--model",
+    "nlfm"])`` once on the card, 2000 steps, or 500 when a warm step passes
+    15 ms: wall, ms a step, host syncs a step, Laplace ms); ``[nlfm ekf
+    parity]`` (``nlfm_mll_ekf``, its gradient and ``nlfm_predict_ekf``,
+    each response, float64, G = 3, T = 9, card against CPU: 1e-10, the
+    smoothed moments 1e-6; the identity against ``lfm_mll_ss`` at the JAX
+    package's 5e-4 and 5e-6); ``[dense nlfm ss]`` (``main.main --preset
+    dense10k --model nlfm --mll-engine ss --no-x64`` at 50 x 200, m = 60:
+    3 steps, or 2 when a step passes 5 s; the first step rel 1e-4 of
+    float64; step ms, host us per filter step, host syncs at T = 50 and
+    200, peak memory, recovery; kernels per filter step and the busy share
+    at T = 10). Then the script's total time.
+11. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
 import importlib.util
@@ -743,19 +760,31 @@ def count_syncs(fn):
                     for w in caught)
 
 
-def device_busy_ms(fn):
-    """Milliseconds the card spent in kernels and copies during ``fn()``,
-    from ``torch.profiler`` (the sum of the device events' own time); None
-    when the profiler records no device time."""
+def device_kernels_and_busy_ms(fn):
+    """``(device kernels, busy ms)`` of ``fn()`` from ``torch.profiler``:
+    the number of device kernel executions and the milliseconds the card
+    spent in kernels and copies (the sum of the device events' own time);
+    ``(None, None)`` when the profiler records no device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    return total_us / 1e3 if total_us > 0 else None
+    events = prof.key_averages()
+    total_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    if total_us <= 0:
+        return None, None
+    return (sum(e.count for e in events if getattr(e, "device_type", None) == DeviceType.CUDA),
+            total_us / 1e3)
+
+
+def device_busy_ms(fn):
+    """Milliseconds the card spent in kernels and copies during ``fn()``
+    (:func:`device_kernels_and_busy_ms`); None without device time."""
+    return device_kernels_and_busy_ms(fn)[1]
 
 
 def ss_parity(smi):
@@ -2495,6 +2524,316 @@ def sparse_phases(drive, smi):
           f"bounds took {time.perf_counter() - t0:.1f} s")
 
 
+# The nonlinear-response family's routes: the p53 MAP route at JAX's
+# default of NLFM_STEPS Adam steps (cut to NLFM_STEPS_SLOW when a step of
+# the first NLFM_PARITY_STEPS takes more than 15 ms), and the dense10k
+# extended-Kalman route at NLFM_DENSE_STEPS steps (cut from 2000; to
+# NLFM_DENSE_STEPS_SLOW when a step takes more than 5 s).
+NLFM_STEPS, NLFM_STEPS_SLOW, NLFM_PARITY_STEPS = 2000, 500, 150
+NLFM_DENSE_STEPS, NLFM_DENSE_STEPS_SLOW = 3, 2
+NLFM_RESPONSES = ("identity", "exp", "softplus", "sigmoid")
+
+
+def _in_dir(path, fn):
+    """``fn()`` with ``path`` as the working directory (the nlfm route
+    writes ``hyperparams.csv`` there)."""
+    cwd = os.getcwd()
+    os.makedirs(path, exist_ok=True)
+    os.chdir(path)
+    try:
+        return fn()
+    finally:
+        os.chdir(cwd)
+
+
+def _rel(a, b):
+    """max |a - b| / max(1, max |b|) over two tensors (any devices)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def nlfm_p53(drive, smi):
+    """``[nlfm p53]``: ``main.run_nonlinear`` (``--model nlfm``: Q = 97, exp,
+    the p21 pin, float64) for its first NLFM_PARITY_STEPS steps on the card
+    and on the CPU in this process, each in its own temporary working
+    directory: the first step within rel 1e-10, the final loss within rel
+    1e-6; ``laplace_posteriors`` on the card against the CPU at the CPU's
+    MAP point, rel 1e-8 (max abs / max(1, max|ref|)). Then the route as a
+    user runs it (``main.main(["--model", "nlfm"])``, NLFM_STEPS steps, or
+    NLFM_STEPS_SLOW when a warm step, timed over 20 steps of ``nlfm.fit``,
+    takes more than 15 ms) once on the card: wall, ms a step, host syncs a
+    step, Laplace ms. No kernel launches (the family has no hand-written
+    kernel)."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import P53Data
+    from dis_project_tpu_torch.models import nlfm
+    from dis_project_tpu_torch.training import generic
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nlfm_")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        config = cfg.RunConfig(model="nlfm", num_iters=NLFM_PARITY_STEPS, device=device,
+                               out_dir=os.path.join(tmp, device, "plots"),
+                               metrics_path=os.path.join(tmp, f"{device}.jsonl"))
+        runs[device] = drive(f"nlfm p53 {device}", lambda: _in_dir(
+            os.path.join(tmp, device), lambda: port_main.run_nonlinear(config)), (),
+            launch_free=True)
+    card, host = runs["cuda"], runs["cpu"]
+    hc, hh = card.result.history.tolist(), host.result.history.tolist()
+    rel_final = abs(hc[-1] - hh[-1]) / abs(hh[-1])
+    rel_first = abs(hc[0] - hh[0]) / abs(hh[0])
+    step_ms = 1e3 * card.wall_s / NLFM_PARITY_STEPS
+    print(f"[nlfm p53] Q=97 exp, {NLFM_PARITY_STEPS} steps f64: final negative log-joint card "
+          f"{hc[-1]!r} cpu {hh[-1]!r} rel {rel_final:.3e} (limit 1e-6); first step rel "
+          f"{rel_first:.3e} (limit 1e-10); wall card {card.wall_s:.3f} s ({step_ms:.2f} ms a "
+          f"step, the process's first steps on the card included), cpu {host.wall_s:.3f} s; "
+          f"Laplace card {1e3 * card.laplace_s:.1f} ms (its first call in the process), cpu "
+          f"{1e3 * host.laplace_s:.1f} ms ({smi})")
+    require(rel_final <= 1e-6, f"nlfm p53 final loss card vs cpu: {rel_final}")
+    require(rel_first <= 1e-10, f"nlfm p53 first step card vs cpu: {rel_first}")
+
+    # Laplace on the card against the CPU at the CPU's MAP point.
+    dev = torch.device("cuda")
+    data = P53Data(replicate=0, source="synthetic", seed=0)
+    model = nlfm.NonlinearLFM(num_genes=5, response="exp", t_max=12.0, num_quad=97,
+                              jitter=cfg.SPARSE_JITTER)
+    arrays = (data.timepoints, data.gene_expressions, data.gene_variances)
+    p_cpu = host.result.params
+    p_card = generic.tree_unflatten(p_cpu, [a.to(dev) for a in generic.tree_leaves(p_cpu)])
+    lap_h, band_h = model.laplace_posteriors(p_cpu, *(torch.as_tensor(a) for a in arrays))
+    lap_c, band_c = model.laplace_posteriors(p_card, *(torch.as_tensor(a, device=dev)
+                                                       for a in arrays))
+    rels = {"force mean": _rel(lap_c.mean, lap_h.mean), "force cov": _rel(lap_c.cov, lap_h.cov),
+            "bands mean": _rel(band_c.mean, band_h.mean),
+            "bands cov": _rel(band_c.cov, band_h.cov)}
+    print(f"[nlfm p53] laplace_posteriors card vs cpu at the cpu's MAP point, max abs / "
+          f"max(1, max|cpu|): {json.dumps(rels)} (limit 1e-8)")
+    require(max(rels.values()) <= 1e-8, f"nlfm p53 Laplace card vs cpu: {rels}")
+
+    # The route as a user runs it, once, cut when a warm step (20 steps of
+    # nlfm.fit after the runs above) passes 15 ms.
+    t_obs, Y, V = (torch.as_tensor(a, device=dev) for a in arrays)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nlfm.fit(model, nlfm.init_params(5, 97, torch.float64, dev), t_obs, Y, V, num_iters=20,
+             fix_params=True)
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0) / 20
+    steps = NLFM_STEPS if warm_ms <= 15.0 else NLFM_STEPS_SLOW
+    print(f"[nlfm p53] warm step {warm_ms:.2f} ms (20 steps of nlfm.fit; the route runs "
+          f"{steps} steps{'' if steps == NLFM_STEPS else f', cut from {NLFM_STEPS}: over 15 ms'})"
+          f" ({smi})")
+    argv = ["--model", "nlfm", "--out-dir", os.path.join(tmp, "full", "plots")]
+    if steps != NLFM_STEPS:
+        argv += ["--num-iters", str(steps)]
+    full = drive("nlfm p53 default route", lambda: _in_dir(
+        os.path.join(tmp, "full"), lambda: port_main.main(argv)), (), launch_free=True)
+    hist = full.result.history
+    require(len(hist) == steps and bool(torch.isfinite(hist).all()),
+            "nlfm p53 default route: history not finite or not the expected length")
+    require(bool(torch.isfinite(full.latent.cov).all() and torch.isfinite(full.bands.cov).all()),
+            "nlfm p53 default route: Laplace posteriors not finite")
+
+    _, syncs = count_syncs(lambda: nlfm.fit(model, nlfm.init_params(5, 97, torch.float64, dev),
+                                            t_obs, Y, V, num_iters=3, fix_params=True))
+    print(f"[nlfm p53] default route {steps} steps on the card: wall {full.wall_s:.3f} s "
+          f"({1e3 * full.wall_s / steps:.2f} ms a step), final negative log-joint "
+          f"{float(hist[-1])!r}; host syncs a step {syncs / 3:.1f}; Laplace (one Q x Q Hessian, "
+          f"both posteriors) {1e3 * full.laplace_s:.1f} ms ({smi})")
+    shutil.rmtree(tmp)
+    return dict(wall_s=full.wall_s, steps=steps, step_ms=1e3 * full.wall_s / steps,
+                laplace_ms=1e3 * full.laplace_s, syncs=syncs / 3)
+
+
+def nlfm_ekf_parity(smi):
+    """``[nlfm ekf parity]``: ``nlfm_mll_ekf``, its raw gradient and
+    ``nlfm_predict_ekf`` on the card against the CPU, float64, each
+    response, at G = 3, T = 9 on ``generate_ode_nonlinear`` data: the value
+    and gradient within rel 1e-10 (max abs / max(1, max|cpu|)); the
+    smoothed moments within 1e-6: the RTS pseudo-solve's relative
+    eigenvalue cutoff makes them move with the ``eigh`` (cuSOLVER's against
+    LAPACK's, measured up to 1.8e-7 on exp; the CPU tests hold the port to
+    the JAX package at 5e-9 with one LAPACK); with the identity
+    response the marginal against ``lfm_mll_ss`` on the card within the
+    JAX package's 5e-4 and 5e-6 at substeps 4 and 8."""
+    import numpy as np
+    import torch
+
+    from dis_project_tpu_torch.data import synthetic
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import generic
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    G, T = 3, 9
+    scfg = synthetic.SyntheticConfig(num_genes=G, num_timepoints=T, num_replicates=1,
+                                     noise_std=0.1)
+    base = simm.init_params(G, dtype=f64)._replace(
+        decay=torch.tensor([0.4, 0.9, 0.6], dtype=f64),
+        sensitivity=torch.tensor([1.0, 0.8, 1.2], dtype=f64))
+    tt = torch.linspace(0.0, 13.0, 11, dtype=f64)
+    worst = {"mll": 0.0, "grad": 0.0, "predict": 0.0}
+    names = ("f_mean", "f_var", "x_mean", "x_var")
+    for resp in NLFM_RESPONSES:
+        data = synthetic.generate_ode_nonlinear(torch.Generator().manual_seed(3), scfg,
+                                                response=resp, oversample=4, device="cpu")
+        t, y = data.timepoints, data.gene_expressions.reshape(-1)
+        out = {}
+        for device in ("cuda", "cpu"):
+            raw = generic.tree_unflatten(simm.unconstrain(base), [
+                a.to(device) for a in simm.unconstrain(base)])
+            td, yd = t.to(device), y.to(device)
+            v, g = generic.value_and_grad(lambda r: ss.nlfm_mll_ekf(
+                simm.constrain(r), td, yd, response=resp, jitter=1e-4), raw)
+            pred = ss.nlfm_predict_ekf(simm.constrain(raw), td, yd, tt.to(device),
+                                       response=resp, noise_var=1e-2)
+            out[device] = (v, g, pred)
+        (vc, gc, pc), (vh, gh, ph) = out["cuda"], out["cpu"]
+        pred = {n: _rel(a, b) for n, a, b in zip(names, pc, ph)}
+        rel = {"mll": _rel(vc, vh), "grad": max(_rel(a, b) for a, b in zip(gc, gh)),
+               "predict": max(pred.values())}
+        worst = {k: max(worst[k], rel[k]) for k in worst}
+        print(f"[nlfm ekf parity] {resp}: mll card {float(vc)!r} cpu {float(vh)!r}; card vs cpu "
+              f"max abs / max(1, max|cpu|): mll {rel['mll']:.3e}, gradient {rel['grad']:.3e}, "
+              f"predict {json.dumps(pred)}")
+    require(worst["mll"] <= 1e-10 and worst["grad"] <= 1e-10,
+            f"nlfm ekf parity: mll or gradient card vs cpu {worst}")
+    require(worst["predict"] <= 1e-6, f"nlfm ekf parity: predict card vs cpu {worst}")
+    ts = torch.linspace(0.0, 12.0, T, dtype=f64, device=dev)
+    ys = torch.tensor(np.random.default_rng(5).normal(size=G * T), dtype=f64, device=dev) + 1.0
+    pd = generic.tree_unflatten(base, [a.to(dev) for a in base])
+    v_lin = float(ss.lfm_mll_ss(pd, ts, ys, jitter=1e-4, order=10, parallel=False))
+    errs = [abs(v_lin - float(ss.nlfm_mll_ekf(pd, ts, ys, response="identity", jitter=1e-4,
+                                              order=10, substeps=sub))) for sub in (4, 8)]
+    print(f"[nlfm ekf parity] worst card vs cpu {json.dumps(worst)} (limits mll and gradient "
+          f"1e-10, predict 1e-6); identity vs lfm_mll_ss on the card: substeps 4 {errs[0]:.3e} "
+          f"(limit 5e-4), 8 {errs[1]:.3e} (limit 5e-6) ({smi})")
+    require(errs[0] < 5e-4 and errs[1] < 5e-6 and errs[1] < errs[0],
+            f"nlfm ekf identity vs lfm_mll_ss: {errs}")
+    return worst
+
+
+def dense_nlfm_ss(drive, smi):
+    """``[dense nlfm ss]``: ``main.main(["--preset", "dense10k", "--model",
+    "nlfm", "--mll-engine", "ss", "--no-x64"])`` at dense10k's full width
+    (``generate_ode_nonlinear`` at 50 x 200, exp, m = 60, float32),
+    NLFM_DENSE_STEPS plain Adam steps, cut from 2000 (NLFM_DENSE_STEPS_SLOW
+    when a step, estimated as 4x a loss and gradient at T = 50, passes 5 s):
+    the finite history; the first step's loss within rel 1e-4 of the float64
+    loss at the same point on the card; step ms (median, spread), host us
+    per filter step, host syncs per loss and gradient at T = 50 and 200
+    (they must not grow with T), peak memory, the recovery correlations;
+    device kernels per filter step and the device's busy share from
+    ``torch.profiler`` over a loss and gradient at T = 10 (the same work a
+    filter step: the profiler's cost grows with its ~1400 kernels a step).
+    No kernel launches."""
+    import torch
+
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import generic
+
+    dev, f32, f64 = torch.device("cuda"), torch.float32, torch.float64
+    G, T = DENSE_GENES, DENSE_TIMEPOINTS
+
+    def objective(raw, t, y):
+        return -ss.nlfm_mll_ekf(simm.constrain(raw), t, y, response="exp",
+                                jitter=cfg.EXACT_JITTER)
+
+    data = port_main.synthetic_nlfm_data(G, T, 0, "exp", f32, dev)
+    t32, y32 = data.timepoints, data.gene_expressions.reshape(-1)
+    raw32 = simm.unconstrain(simm.init_params(G, dtype=f32, device=dev))
+
+    def loss_and_grad(t_len):
+        y_t = y32.reshape(G, T)[:, :t_len].reshape(-1)
+        return lambda: generic.value_and_grad(lambda r: objective(r, t32[:t_len], y_t), raw32)
+
+    syncs, wall = {}, {}
+    for t_len in (50, T):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, syncs[t_len] = count_syncs(loss_and_grad(t_len))
+        wall[t_len] = time.perf_counter() - t0
+    steps = NLFM_DENSE_STEPS if 4 * wall[50] <= 5.0 else NLFM_DENSE_STEPS_SLOW
+    print(f"[dense nlfm ss] cut: {steps} steps of the default 2000 (a step estimated at "
+          f"{4e3 * wall[50]:.1f} ms from 4x a loss and gradient at T = 50; "
+          f"{NLFM_DENSE_STEPS_SLOW} when it passes 5 s) ({smi})")
+
+    held = {}
+
+    def run():
+        torch.cuda.reset_peak_memory_stats(dev)
+        held["bytes"] = torch.cuda.memory_allocated(dev)
+        return port_main.main(["--preset", "dense10k", "--model", "nlfm", "--mll-engine", "ss",
+                               "--no-x64", "--synth-genes", str(G), "--synth-timepoints", str(T),
+                               "--num-iters", str(steps)])
+
+    dense = drive("dense nlfm ss", run, (), launch_free=True)
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["bytes"]) / 2**30
+    hist = dense.result.history.tolist()
+    require(all(math.isfinite(v) for v in hist), f"dense nlfm ss losses not finite: {hist}")
+    require(torch.equal(dense.y, y32), "dense nlfm ss: the route's data differ from the phase's")
+    step_ms = [1e3 * s for s in dense.step_seconds]
+    later = step_ms[1:] or step_ms
+    median = statistics.median(later)
+    spread = (statistics.quantiles(later, n=4)[2] - statistics.quantiles(later, n=4)[0]
+              if len(later) >= 2 else float("nan"))
+    vg_us = [1e6 * st["value_and_grad_host_s"] / T for st in dense.ss_stats]
+    fwd_us = [1e6 * st["forward_host_s"] / T for st in dense.ss_stats]
+    p = dense.result.params
+    corr_d = _corr(p.decay, dense.data.params_true["decay"])
+    corr_s = _corr(p.sensitivity, dense.data.params_true["sensitivity"])
+
+    # The first step's float32 loss against float64 at the same point.
+    raw64 = simm.unconstrain(simm.init_params(G, dtype=f64, device=dev))
+    loss64 = float(objective(raw64, t32.double(), y32.double()))
+    rel64 = abs(hist[0] - loss64) / abs(loss64)
+    print(f"[dense nlfm ss] N={G * T}, f32, {steps} steps: losses {hist}; first step vs f64 at "
+          f"the same point {loss64!r}: rel {rel64:.3e} (limit 1e-4); recovery corr(decay) "
+          f"{corr_d:.4f} corr(sensitivity) {corr_s:.4f} ({smi})")
+    require(rel64 <= 1e-4, f"dense nlfm ss first step f32 vs f64: {rel64}")
+
+    t_prof = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_and_grad(t_prof)()
+    torch.cuda.synchronize()
+    wall_prof = time.perf_counter() - t0
+    kernels, busy = device_kernels_and_busy_ms(loss_and_grad(t_prof))
+    share = ("not measured (no device time in the trace)" if busy is None else
+             f"{busy:.3f} ms busy of {1e3 * wall_prof:.3f} ms wall, share "
+             f"{busy / (1e3 * wall_prof):.3f}; {kernels} device kernels, "
+             f"{kernels / t_prof:.0f} per filter step")
+    print(f"[dense nlfm ss] step ms {[round(s, 3) for s in step_ms]} median (steps 2+) "
+          f"{median:.3f}, spread (interquartile) {spread:.3f}; host us per filter step, loss "
+          f"{[round(u, 1) for u in fwd_us]}, loss and gradient {[round(u, 1) for u in vg_us]}; "
+          f"host syncs per loss and gradient T=50 {syncs[50]}, T={T} {syncs[T]}; peak memory "
+          f"{peak_gib:.3f} GiB; one loss and gradient at T = {t_prof}: {share} ({smi})")
+    require(syncs[T] <= syncs[50], f"dense nlfm ss: host syncs grow with T: {syncs}")
+    return dict(median=median, spread=spread, steps=steps, peak_gib=peak_gib, busy=busy,
+                kernels=kernels, syncs=syncs[T])
+
+
+def nlfm_phases(drive, smi):
+    """The nonlinear-response family's phases; prints their total wall
+    seconds."""
+    t0 = time.perf_counter()
+    p53 = nlfm_p53(drive, smi)
+    nlfm_ekf_parity(smi)
+    dense = dense_nlfm_ss(drive, smi)
+    print(f"[nlfm] p53 default route {p53['steps']} steps {p53['wall_s']:.3f} s "
+          f"({p53['step_ms']:.2f} ms a step, Laplace {p53['laplace_ms']:.1f} ms); dense10k EKF "
+          f"step median {dense['median']:.3f} ms (spread {dense['spread']:.3f}, "
+          f"{dense['peak_gib']:.3f} GiB, {dense['steps']} steps) ({smi})")
+    print(f"[nlfm phases] nlfm p53, nlfm ekf parity and dense nlfm ss took "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main():
     import torch
 
@@ -3588,6 +3927,7 @@ def main():
     simm2_phases(drive, smi)
     family_phases(drive, smi)
     sparse_phases(drive, smi)
+    nlfm_phases(drive, smi)
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():

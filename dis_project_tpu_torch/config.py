@@ -8,6 +8,8 @@ import argparse
 import dataclasses
 from typing import Optional, Sequence
 
+from dis_project_tpu_torch.ops.odeint import RESPONSE_NAMES
+
 PORTED_PRESETS = ("p53", "p53-replicates", "alfi-parity", "dense10k", "sparse100k")
 # Dense-route engines: 'cholesky' (the row/gridded exact route), 'cg'
 # (ops.iterative) and 'ss' (ops.statespace); the JAX package's 'dist' is
@@ -16,10 +18,11 @@ PORTED_ENGINES = ("cholesky", "cg", "ss")
 NOT_PORTED_ENGINES = ("dist",)
 FORCE_KERNELS = ("rbf", "matern12", "matern32", "matern52")
 # Model families: the first-order, second-order, multi-force and
-# delayed-response exact families run; the JAX package's nonlinear family is
-# named and refused.
-PORTED_MODELS = ("simm", "simm2", "multisimm", "delaysimm")
-NOT_PORTED_MODELS = ("nlfm",)
+# delayed-response exact families and the nonlinear-response family (MAP and
+# Laplace; its extended-Kalman marginal on dense10k).
+PORTED_MODELS = ("simm", "simm2", "multisimm", "delaysimm", "nlfm")
+# The nlfm route's default number of MAP steps (every other route: 150).
+NLFM_NUM_ITERS = 2000
 
 # Exact-path jitter (reference src/main.py:41).
 EXACT_JITTER = 1e-4
@@ -40,9 +43,13 @@ class RunConfig:
     preset: str = "p53"
     # model family: simm (first-order exact) | simm2 (second-order exact)
     # | multisimm (R independent latent forces) | delaysimm (per-gene delays)
+    # | nlfm (first-order with a nonlinear response g(f): MAP + Laplace)
     model: str = "simm"
     # multisimm routes: number of latent forces
     num_forces: int = 2
+    # nlfm route: response nonlinearity and quadrature grid size
+    response: str = "exp"
+    num_quad: int = 97
     # data
     replicate: Optional[int] = 0  # None = all three replicates
     selected_genes: Optional[Sequence[str]] = None
@@ -111,14 +118,21 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
                         "dense10k (N = genes x timepoints exact stress run) or "
                         "sparse100k (minibatch SVI on a sparse variational bound)")
     parser.add_argument("--model", default=d.model,
-                        choices=PORTED_MODELS + NOT_PORTED_MODELS,
+                        choices=PORTED_MODELS,
                         help="model family: 'simm' (first-order exact), 'simm2' "
                         "(second-order spring-damper exact), 'multisimm' (R "
-                        "independent latent forces) or 'delaysimm' (per-gene "
-                        "transcriptional delays); nlfm is not yet ported")
+                        "independent latent forces), 'delaysimm' (per-gene "
+                        "transcriptional delays) or 'nlfm' (nonlinear response)")
     parser.add_argument("--num-forces", type=int, default=d.num_forces,
                         help="multisimm route: number of independent "
                         f"latent forces (default {d.num_forces})")
+    parser.add_argument("--response", default=d.response, choices=RESPONSE_NAMES,
+                        help="nlfm route: response nonlinearity g(f) "
+                        "(default exp, Lawrence et al. 2006 s5's "
+                        "positivity-constrained model)")
+    parser.add_argument("--num-quad", type=int, default=d.num_quad,
+                        help="nlfm route: force quadrature grid size "
+                        f"(default {d.num_quad})")
     parser.add_argument("--replicate", type=str, default="0",
                         help="replicate index 0-2, or 'all'")
     parser.add_argument("--genes", type=str, default=None,
@@ -160,8 +174,10 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--jitter", type=float, default=d.jitter,
                         help="diagonal jitter (default: 1e-4 exact paths, "
                         "1e-6 sparse path)")
-    parser.add_argument("--num-iters", type=int, default=d.num_iters,
-                        help=f"optimisation steps (default {d.num_iters})")
+    # Default None: the nlfm route's MAP takes NLFM_NUM_ITERS steps.
+    parser.add_argument("--num-iters", type=int, default=None,
+                        help=f"optimisation steps (default {d.num_iters}; "
+                        f"nlfm route: {NLFM_NUM_ITERS})")
     parser.add_argument("--learning-rate", type=float, default=d.learning_rate)
     parser.add_argument("--optimizer", default=d.optimizer, choices=["adam", "lbfgs"])
     parser.add_argument("--no-fix-params", action="store_true",
@@ -192,6 +208,8 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         preset=args.preset,
         model=args.model,
         num_forces=args.num_forces,
+        response=args.response,
+        num_quad=args.num_quad,
         replicate=None if args.replicate == "all" else int(args.replicate),
         selected_genes=args.genes.split(",") if args.genes else None,
         data_dir=args.data_dir,
@@ -211,7 +229,8 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         dp_shard=args.dp_shard,
         jitter=args.jitter,
         shared_kinetics=args.shared_kinetics,
-        num_iters=args.num_iters,
+        num_iters=(args.num_iters if args.num_iters is not None
+                   else NLFM_NUM_ITERS if args.model == "nlfm" else RunConfig.num_iters),
         learning_rate=args.learning_rate,
         optimizer=args.optimizer,
         fix_params=not args.no_fix_params,

@@ -83,6 +83,18 @@ def guard_from_numpy(good_raw, good_adam, streak, count, device=None, dtype=PARI
     return good, int(np.asarray(streak)), int(np.asarray(count))
 
 
+def nlfm_params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE):
+    """The nonlinear family's ``NLFMParams`` from a mapping with
+    ``kinetics`` (a mapping of the five :class:`SIMMParams` field names,
+    e.g. ``jax_params.kinetics._asdict()``) and ``w`` (the (Q,) whitened
+    force); values are array-likes."""
+    from dis_project_tpu_torch.models.nlfm import NLFMParams
+
+    return NLFMParams(params_from_numpy(mapping["kinetics"], device, dtype),
+                      torch.as_tensor(np.array(mapping["w"]), dtype=dtype,
+                                      device=default_device(device)))
+
+
 def svlfm_params_from_numpy(mapping, device=None, dtype=PARITY_DTYPE):
     """The sparse family's ``SVLFMParams`` from a mapping with ``kinetics``
     (a mapping of the kinetics' field names, e.g.

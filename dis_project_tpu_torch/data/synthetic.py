@@ -1,7 +1,6 @@
 r"""Synthetic LFM data for the dense stress configurations.
 
-Port of five generators of ``dis_project_tpu/data/synthetic.py`` (the
-nonlinear-response generator comes with its model family):
+Port of the six generators of ``dis_project_tpu/data/synthetic.py``:
 
 - :func:`sample_prior`: an exact joint draw from the first-order SIMM GP
   prior using the port's own closed-form kernels. Replicates share one
@@ -13,6 +12,8 @@ nonlinear-response generator comes with its model family):
   route: a force drawn from the consistent RBF prior on a fine grid, pushed
   through each gene's ODE by the exponential-kernel trapezoid rule (host
   float64); no closed-form kernel on this path.
+- :func:`generate_ode_nonlinear`: :func:`generate_ode`'s draws pushed
+  through a response ``g(f)`` of ``ops.odeint`` before the quadrature.
 - :func:`generate_ode2`: the second-order (spring-damper) quadrature
   oracle: a force drawn from the consistent RBF prior on a fine grid,
   pushed through the damped oscillator by trapezoid convolution with its
@@ -299,6 +300,23 @@ def generate_ode(generator: torch.Generator, cfg: Optional[SyntheticConfig] = No
     dev = default_device(device)
     return ode_from_draws(*ode_draws(generator, cfg, oversample, dtype), cfg, oversample,
                           dtype=dtype, device=dev)
+
+
+def generate_ode_nonlinear(generator: torch.Generator, cfg: Optional[SyntheticConfig] = None,
+                           response: str = "exp", oversample: int = 16, dtype=PARITY_DTYPE,
+                           device=None) -> SyntheticLFMData:
+    r"""Nonlinear-response quadrature oracle for ``models.nlfm``,
+    :math:`\dot x_j = B_j + S_j\,g(f(t)) - D_j x_j` with ``g`` one of
+    ``ops.odeint.RESPONSE_NAMES``: the draws of :func:`generate_ode`
+    (``response='identity'`` gives its data bit for bit on the same
+    generator state); ``f_true`` is the force f before the response."""
+    from dis_project_tpu_torch.ops import odeint
+
+    cfg = cfg or SyntheticConfig()
+    dev = default_device(device)
+    return ode_from_draws(*ode_draws(generator, cfg, oversample, dtype), cfg, oversample,
+                          response=odeint.response_fn(response, xp=np), dtype=dtype,
+                          device=dev)
 
 
 # The second-order generator's kinetics ranges (JAX generate_ode2's defaults).

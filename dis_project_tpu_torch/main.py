@@ -58,6 +58,16 @@ says otherwise:
   --mll-engine ss`` :func:`run_dense_delay` (``generate_ode_delay`` data,
   ``ops.statespace.delaysimm_mll_ss`` over T*G warped events, gene 0's delay
   pinned, decay and delay recovery).
+- ``--model nlfm`` (the nonlinear response dx/dt = B + S g(f) - D x,
+  ``--response`` identity|exp|softplus|sigmoid, ``models.nlfm``): on the
+  default preset :func:`run_nonlinear` (p53 data, MAP over the kinetics and
+  the whitened force on a ``--num-quad``-point grid, 2000 Adam steps unless
+  ``--num-iters`` says otherwise, the p21 pin, ``hyperparams.csv``, the
+  Laplace force and gene-curve bands from one Hessian and their plots);
+  with ``--preset dense10k --mll-engine ss`` :func:`run_dense_nlfm`
+  (``generate_ode_nonlinear`` data, the extended-Kalman marginal
+  ``ops.statespace.nlfm_mll_ekf``, plain Adam, decay and sensitivity
+  recovery). ``--posterior-samples`` (HMC) is not yet ported.
 
 - ``--preset sparse100k`` (:func:`run_sparse`, BASELINE config 5): ODE
   quadrature data (``generate_ode``; ``generate_ode2`` with ``--model
@@ -488,7 +498,8 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
     N = genes x timepoints, full-batch training through the engine of
     ``--mll-engine``, and ground-truth kinetics recovery (``--model
     simm2``: :func:`run_dense_second_order`; ``multisimm``:
-    :func:`run_dense_multiforce`; ``delaysimm``: :func:`run_dense_delay`)."""
+    :func:`run_dense_multiforce`; ``delaysimm``: :func:`run_dense_delay`;
+    ``nlfm``: :func:`run_dense_nlfm`)."""
     from dis_project_tpu_torch.data.dataset import train_arrays
     from dis_project_tpu_torch.models import simm
     from dis_project_tpu_torch.ops import iterative
@@ -498,7 +509,7 @@ def run_dense(config: cfg.RunConfig) -> DenseRun:
 
     if config.model != "simm":
         return {"simm2": run_dense_second_order, "multisimm": run_dense_multiforce,
-                "delaysimm": run_dense_delay}[config.model](config)
+                "delaysimm": run_dense_delay, "nlfm": run_dense_nlfm}[config.model](config)
     dev = default_device(config.device)
     dtype = dtype_for(config.x64)
     G, T = config.synth_genes, config.synth_timepoints
@@ -1250,10 +1261,175 @@ def run_dense_delay(config: cfg.RunConfig) -> DenseRun:
                     ss_stats=ss_stats)
 
 
+@dataclasses.dataclass
+class NonlinearRun(FamilyRun):
+    """The nonlinear family's p53 route: ``latent`` is the Laplace force
+    posterior on the quadrature grid ``t_grid``; ``bands`` the delta-method
+    Gaussian over the gene curves there, (G*Q,); ``laplace_s`` the wall
+    seconds of the one-Hessian ``laplace_posteriors``."""
+
+    bands: Any = None
+    laplace_s: float = 0.0
+
+
+def run_nonlinear(config: cfg.RunConfig) -> NonlinearRun:
+    """The nonlinear-response LFM on the p53 data, the ``--model nlfm``
+    route: Lawrence et al. (2006) §5's dx/dt = B + S g(f) - D x
+    (``--response``, default exp) by MAP over (kinetics, whitened force on
+    a ``--num-quad``-point grid), ``nlfm.fit`` with the p21 pin when p21 is
+    present (``fit_checkpointed`` under ``--checkpoint-dir``), the metrics
+    JSONL, the hyperparameter table and ``hyperparams.csv`` (in the working
+    directory), then both Laplace posteriors from one Hessian; with
+    matplotlib, the parameter trace and the force and gene-curve plots.
+    ``--posterior-samples`` (HMC) is not yet ported."""
+    from dis_project_tpu_torch.data.dataset import P53Data
+    from dis_project_tpu_torch.models import nlfm
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.reporting import tables
+
+    _check_route_flags(config, "nlfm", ((config.shared_kinetics, "--shared-kinetics"),))
+    if config.num_quad < 3:
+        raise SystemExit("--num-quad must be >= 3")
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    data = P53Data(replicate=config.replicate, data_dir=config.data_dir,
+                   selected_genes=config.selected_genes, source=config.data_source,
+                   seed=config.seed)
+    t_obs, Y, V = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (
+        data.timepoints, data.gene_expressions, data.gene_variances))
+    model = nlfm.NonlinearLFM(num_genes=data.num_genes, response=config.response,
+                              t_max=float(data.timepoints[-1]), num_quad=config.num_quad,
+                              jitter=config.sparse_jitter)
+    # The pin targets p21 by name; for the exp response the S <-> force
+    # shift degeneracy g(f + c) = e^c g(f) makes it matter more than in the
+    # linear family.
+    has_p21 = "p21" in data.gene_names
+    print(f"Training nonlinear-response LFM (g={config.response}, Q={config.num_quad}) by MAP "
+          f"on {dev} ({dtype})...")
+    t0 = time.perf_counter()
+    result = nlfm.fit(
+        model, nlfm.init_params(data.num_genes, config.num_quad, dtype, dev), t_obs, Y, V,
+        num_iters=config.num_iters, learning_rate=config.learning_rate,
+        fix_params=config.fix_params and has_p21,
+        clamp_gene=data.gene_names.index("p21") if has_p21 else 0,
+        optimizer=config.optimizer, track_parameters=config.track_parameters,
+        checkpoint_dir=config.checkpoint_dir, resume=config.resume, full_result=True)
+    wall = time.perf_counter() - t0
+    print(f"Trained {config.num_iters} iters in {wall:.2f}s "
+          f"(final negative log-joint {_final_loss(result.history):.6f})")
+    if config.metrics_path:
+        write_metrics(config.metrics_path, result)
+        print(f"Metrics written to {config.metrics_path}")
+    plots = _have_matplotlib()
+    tr = result.param_trace
+    if config.track_parameters and tr is not None and plots:
+        _plot_trace(config, {"basal": tr.kinetics.basal, "sensitivity": tr.kinetics.sensitivity,
+                             "decay": tr.kinetics.decay}, data.gene_names, "nlfm")
+    if config.response == "exp":
+        print("NOTE: the exp response has an exact (f+c, S*e^-c) shift "
+              "degeneracy; the force is identified up to an additive "
+              "constant (resolved in practice by the p21 sensitivity pin).")
+    params = result.params
+    tables.print_hyperparams(params.kinetics, data, csv_path="hyperparams.csv")
+
+    print("Making predictions and plotting...")
+    grid = model.quad_grid(dtype, dev)
+    t1 = time.perf_counter()
+    lap, bands = model.laplace_posteriors(params, t_obs, Y, V)
+    laplace_s = time.perf_counter() - t1
+    if plots:
+        from dis_project_tpu_torch.reporting import plotter
+
+        # The Barenco activity profile lives in the response's domain: it
+        # is comparable to the force f only for g = identity.
+        identity = config.response == "identity"
+        name = config.save_name or "nlfm"
+        plotter.plot_lf(grid[:, None], lap, y_scatter=data.f_observed if identity else None,
+                        scatter_times=data.timepoints if identity else None,
+                        title=f"nonlinear ({config.response})", save_name=name,
+                        out_dir=config.out_dir)
+        plotter.plot_gene_predictions(grid.repeat(data.num_genes)[:, None], bands, data,
+                                      save_name=name, out_dir=config.out_dir,
+                                      points_per_gene=config.num_quad)
+        print(f"Plots saved under {config.out_dir}/")
+    else:
+        print("matplotlib is not installed: the force and gene-curve plots are not drawn")
+    return NonlinearRun(result, lap, data, grid, wall, bands=bands, laplace_s=laplace_s)
+
+
+def synthetic_nlfm_data(genes: int, timepoints: int, seed: int, response: str, dtype, device):
+    """The dense nonlinear route's dataset: ``generate_ode_nonlinear`` at
+    genes x timepoints, one replicate, noise std 0.1, oversample 4, from
+    ``seed``."""
+    from dis_project_tpu_torch.data import synthetic
+
+    scfg = synthetic.SyntheticConfig(
+        num_genes=genes, num_timepoints=timepoints, num_replicates=1, noise_std=0.1
+    )
+    return synthetic.generate_ode_nonlinear(torch.Generator().manual_seed(seed), scfg,
+                                            response=response, oversample=4, dtype=dtype,
+                                            device=device)
+
+
+def run_dense_nlfm(config: cfg.RunConfig) -> DenseRun:
+    """Dense nonlinear-response run, ``--preset dense10k --model nlfm
+    --mll-engine ss``: ``generate_ode_nonlinear`` data (``--response``,
+    oversample 4) at N = genes x timepoints, full-batch plain Adam (no
+    clipping, no guard, as the JAX package's optax loop) on the
+    extended-Kalman approximate marginal
+    ``ops.statespace.nlfm_mll_ekf`` (the force integrated out, the gene
+    drift linearized around the filtered mean; ``--force-kernel``), the
+    decay and sensitivity recovery, the dense metrics file. One loop: the
+    JAX package's 25-step segments serve its compiler only."""
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import statespace as ss_ops
+    from dis_project_tpu_torch.ops.precision import default_device, dtype_for
+    from dis_project_tpu_torch.training import generic
+
+    dev = default_device(config.device)
+    dtype = dtype_for(config.x64)
+    G, T, resp = config.synth_genes, config.synth_timepoints, config.response
+    print(f"Sampling synthetic {resp}-response ODE dataset via quadrature: {G} x {T} "
+          f"(N={G * T}) on {dev}...")
+    data = synthetic_nlfm_data(G, T, config.seed, resp, dtype, dev)
+    X, y, var = train_arrays(data, dev, dtype)
+    tgrid = torch.as_tensor(data.timepoints, dtype=dtype, device=dev)
+    raw = simm.unconstrain(simm.init_params(G, dtype=dtype, device=dev))
+    ss_stats, forward_s = [], []
+    objective = _ss_objective(lambda r: -ss_ops.nlfm_mll_ekf(
+        simm.constrain(r), tgrid, y, response=resp, jitter=config.exact_jitter,
+        force_kernel=config.force_kernel), forward_s)
+    prior = ("order-10 SDE" if config.force_kernel == "rbf"
+             else f"EXACT {config.force_kernel} prior")
+    print(f"Training (approximate marginal {resp}-response likelihood, extended Kalman engine "
+          f"(O(T), {prior}))...")
+    t0 = time.perf_counter()
+    raw, opt_state, losses, norms, step_seconds = fit_dense_adam(
+        objective, raw, config.num_iters, config.learning_rate, ss_stats, forward_s)
+    print_ss_step(ss_stats, step_seconds, T)
+    f64 = torch.float64
+    hist = torch.tensor(losses, dtype=f64)
+    print(f"Trained {config.num_iters} iters in {time.perf_counter() - t0:.2f}s "
+          f"(final loss {_final_loss(losses):.4f}, N={G * T})")
+    p = simm.constrain(raw)
+    res = generic.LoopResult(raw=raw, params=p, history=hist,
+                             grad_norms=torch.tensor(norms, dtype=f64), opt_state=opt_state)
+    corr_d = float(np.corrcoef(p.decay.detach().cpu().numpy(),
+                               data.params_true["decay"].detach().cpu().numpy())[0, 1])
+    corr_s = float(np.corrcoef(p.sensitivity.detach().cpu().numpy(),
+                               data.params_true["sensitivity"].detach().cpu().numpy())[0, 1])
+    print(f"Ground-truth recovery: corr(decay)={corr_d:.3f} corr(sensitivity)={corr_s:.3f}")
+    if config.metrics_path:
+        write_dense_metrics(config.metrics_path, hist)
+    return DenseRun(res, None, data, X, y, var, step_seconds, final_loss=_final_loss(losses),
+                    ss_stats=ss_stats)
+
+
 PORTED_FLAGS = (
     "--preset p53|p53-replicates|alfi-parity|dense10k|sparse100k, "
     "--num-inducing, --batch-size, --num-epochs, "
-    "--model simm|simm2|multisimm|delaysimm, --num-forces, "
+    "--model simm|simm2|multisimm|delaysimm|nlfm, --num-forces, --response, --num-quad, "
     "--mll-engine cholesky|cg|ss, "
     "--force-kernel, --stationary-after, "
     "--replicate, --genes, --data-dir, --data-source, --seed, --synth-genes, "
@@ -1298,6 +1474,12 @@ def check_ss_flags(config: cfg.RunConfig) -> None:
             "are exactly Markovian but have NO closed-form dense Gram; "
             "every state-space route supports them — multisimm applies "
             "the kernel to every force)"
+        )
+    if config.ss_shard and config.model == "nlfm":
+        raise SystemExit(
+            "--ss-shard is not supported on the nlfm EKF route (the "
+            "extended prediction step is state-dependent, so the "
+            "filtering-semigroup factorisation does not apply)"
         )
 
 
@@ -1389,8 +1571,6 @@ def main(argv=None):
                          f"(ported flags: {PORTED_FLAGS})")
     config = cfg.config_from_args(args)
     check_model_flags(config)
-    if config.model in cfg.NOT_PORTED_MODELS:
-        raise SystemExit(f"--model {config.model} is not yet ported")
     if config.mll_engine in cfg.NOT_PORTED_ENGINES:
         raise SystemExit(f"--mll-engine {config.mll_engine} is not yet ported")
     if config.resume and not config.checkpoint_dir:
@@ -1417,6 +1597,8 @@ def main(argv=None):
         return run_multiforce(config)
     if config.model == "delaysimm":
         return run_delay(config)
+    if config.model == "nlfm":
+        return run_nonlinear(config)
     if config.preset == "p53-replicates":
         config.replicate = None
     return run(config)

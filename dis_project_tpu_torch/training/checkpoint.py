@@ -65,6 +65,19 @@ def _fill(template, leaves):
     return next(leaves)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in order (depth first, fields in order, as
+    ``jax.tree.leaves``)."""
+    leaves = []
+    _flatten(tree, leaves)
+    return leaves
+
+
+def tree_unflatten(like, leaves):
+    """The tree of ``like``'s structure holding ``leaves`` in order."""
+    return _fill(like, iter(leaves))
+
+
 def _path(directory: str, step: int) -> str:
     return os.path.join(os.path.abspath(directory), f"step_{step}.pt")
 

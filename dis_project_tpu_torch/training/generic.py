@@ -26,7 +26,12 @@ optimizers mutate theirs and apply the update themselves).
   host floats: its branches are host decisions, as the JAX
   ``while_loop``'s are device ones.
 
-Parameter trees are NamedTuples (or tuples) of tensors.
+Parameter trees are NamedTuples (or tuples) of tensors, nested to any
+depth (the nonlinear family's ``NLFMParams`` holds a ``SIMMParams``): every
+helper reads a tree through ``training.checkpoint.tree_leaves`` and rebuilds
+it through ``tree_unflatten``, in ``jax.tree.leaves``' order (fields in
+order, depth first). Optimizer states hold the flat tuple of a tree's
+leaves.
 """
 
 from __future__ import annotations
@@ -38,22 +43,25 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dis_project_tpu_torch.training.checkpoint import tree_leaves, tree_unflatten
+
 
 def _map(fn, *trees):
-    return type(trees[0])(*(fn(*leaves) for leaves in zip(*trees)))
+    return tree_unflatten(trees[0], [fn(*leaves)
+                                     for leaves in zip(*(tree_leaves(t) for t in trees))])
 
 
 def _vdot(a, b) -> float:
     """Sum over leaves of each leaf's inner product (``optax.tree.vdot``)."""
     total = 0.0
-    for x, y in zip(a, b):
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
         total = total + float(torch.dot(x.reshape(-1), y.reshape(-1)))
     return total
 
 
 def _sqnorm(tree) -> float:
     total = 0.0
-    for x in tree:
+    for x in tree_leaves(tree):
         total = total + float(torch.sum(x * x))
     return total
 
@@ -76,22 +84,24 @@ class Adam:
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
 
     def init(self, params) -> AdamState:
-        zeros = tuple(torch.zeros_like(p) for p in params)
-        return AdamState(0, zeros, tuple(torch.zeros_like(p) for p in params))
+        leaves = tree_leaves(params)
+        zeros = tuple(torch.zeros_like(p) for p in leaves)
+        return AdamState(0, zeros, tuple(torch.zeros_like(p) for p in leaves))
 
     def update(self, grads, state: AdamState, params=None, value=None, **_):
-        """Returns ``(updates, new_state)``; ``updates`` has the type of
-        ``grads``."""
+        """Returns ``(updates, new_state)``; ``updates`` has the structure
+        of ``grads``."""
         b1, b2 = self.b1, self.b2
-        mu = tuple((1 - b1) * g + b1 * m for g, m in zip(grads, state.mu))
-        nu = tuple((1 - b2) * (g**2) + b2 * v for g, v in zip(grads, state.nu))
+        g_leaves = tree_leaves(grads)
+        mu = tuple((1 - b1) * g + b1 * m for g, m in zip(g_leaves, tree_leaves(state.mu)))
+        nu = tuple((1 - b2) * (g**2) + b2 * v for g, v in zip(g_leaves, tree_leaves(state.nu)))
         count = state.count + 1
         bc1 = 1 - b1**count
         bc2 = 1 - b2**count
-        updates = type(grads)(*(
+        updates = tree_unflatten(grads, [
             -self.lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
             for m, v in zip(mu, nu)
-        ))
+        ])
         return updates, AdamState(count, mu, nu)
 
 
@@ -310,7 +320,7 @@ class LBFGS:
 
     def init(self, params) -> LBFGSState:
         m = self.memory_size
-        stacked = tuple(p.new_zeros((m,) + tuple(p.shape)) for p in params)
+        stacked = tuple(p.new_zeros((m,) + tuple(p.shape)) for p in tree_leaves(params))
         zeros = _map(torch.zeros_like, params)
         return LBFGSState(0, zeros, zeros, stacked, stacked, (0.0,) * m, 1.0, 0)
 
@@ -321,8 +331,8 @@ class LBFGS:
         indices = [(memory_idx + k) % m for k in range(m)]
 
         def pair(idx):
-            return (type(updates)(*(x[idx] for x in dw_mem)),
-                    type(updates)(*(x[idx] for x in du_mem)))
+            return (tree_unflatten(updates, [x[idx] for x in dw_mem]),
+                    tree_unflatten(updates, [x[idx] for x in du_mem]))
 
         vec, alphas = updates, [0.0] * m
         for k in reversed(range(m)):
@@ -353,7 +363,7 @@ class LBFGS:
 
         def put(mem, leaves):
             out = []
-            for buf, leaf in zip(mem, leaves):
+            for buf, leaf in zip(mem, tree_leaves(leaves)):
                 buf = buf.clone()
                 buf[prev_idx] = leaf
                 out.append(buf)
@@ -395,25 +405,25 @@ def make_optimizer(name: str, learning_rate: float):
 
 
 def apply_updates(params, updates):
-    return type(params)(*(p + u for p, u in zip(params, updates)))
+    return _map(lambda p, u: p + u, params, updates)
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g * g) for g in tree))
+    return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(tree)))
 
 
 def tree_isfinite(tree) -> bool:
-    """Every tensor of ``tree`` is entirely finite (a host sync)."""
-    return all(bool(torch.isfinite(a).all()) for a in tree)
+    """Every tensor of ``tree`` is entirely finite (a host sync a leaf)."""
+    return all(bool(torch.isfinite(a).all()) for a in tree_leaves(tree))
 
 
 def value_and_grad(loss_fn, raw):
-    """``(loss, grads)`` of a scalar ``loss_fn`` at the tuple ``raw``;
-    both detached, ``grads`` of the type of ``raw``."""
-    leaves = type(raw)(*(p.detach().requires_grad_(True) for p in raw))
-    loss = loss_fn(leaves)
-    grads = torch.autograd.grad(loss, tuple(leaves))
-    return loss.detach(), type(raw)(*grads)
+    """``(loss, grads)`` of a scalar ``loss_fn`` at the tree ``raw``;
+    both detached, ``grads`` of the structure of ``raw``."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(raw)]
+    loss = loss_fn(tree_unflatten(raw, leaves))
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(raw, grads)
 
 
 def guarded_transition(value_and_grad_fn, do_update, raw, opt_state, good,
@@ -448,7 +458,7 @@ def guarded_transition(value_and_grad_fn, do_update, raw, opt_state, good,
     updates, opt2 = do_update(grads_g, g_opt, g_raw, loss_g)
     k = min((s + 1) // 2, 8)
     scale = 0.5**k if s % 2 == 1 else 2.0**k
-    scaled = type(updates)(*(u * scale for u in updates))
+    scaled = _map(lambda u: u * scale, updates)
     return (apply_updates(g_raw, scaled), opt2, (g_raw, g_opt), s, count + 1,
             loss_g, grads_g, True)
 
@@ -543,14 +553,13 @@ def fit_loop(
         if track_parameters:
             trace.append(constrain_fn(raw))
 
-    like = raw[0]
+    like = tree_leaves(raw)[0]
     return LoopResult(
         raw=raw,
         params=constrain_fn(raw),
         history=_stack(losses, like),
         grad_norms=_stack(norms, like),
-        param_trace=(type(trace[0])(*(torch.stack(leaves) for leaves in zip(*trace)))
-                     if trace else None),
+        param_trace=_map(lambda *steps: torch.stack(steps), *trace) if trace else None,
         opt_state=opt_state,
         guard_flags=torch.tensor(flags, dtype=torch.bool) if finite_guard else None,
         guard_state=(good, streak, count) if finite_guard else None,
@@ -624,7 +633,8 @@ def fit_checkpointed(
                               **guard_payload(guard)}, step=step)
 
     if not results:  # already complete on entry
-        empty = torch.zeros(0, dtype=raw[0].dtype, device=raw[0].device)
+        like = tree_leaves(raw)[0]
+        empty = torch.zeros(0, dtype=like.dtype, device=like.device)
         return LoopResult(raw=raw, params=constrain_fn(raw), history=empty, grad_norms=empty,
                           opt_state=opt_state)
     traces = [r.param_trace for r in results if r.param_trace is not None]
@@ -633,6 +643,5 @@ def fit_checkpointed(
         history=torch.cat([r.history for r in results]),
         grad_norms=torch.cat([r.grad_norms for r in results]),
         guard_flags=torch.cat([r.guard_flags for r in results]),
-        param_trace=(type(traces[0])(*(torch.cat(leaves) for leaves in zip(*traces)))
-                     if traces else None),
+        param_trace=_map(lambda *segs: torch.cat(segs), *traces) if traces else None,
     )

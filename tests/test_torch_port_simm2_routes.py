@@ -303,16 +303,15 @@ def test_cli_refuses_simm2_combinations_with_jax_messages(argv):
 NOT_YET_PORTED = {
     "multisimm": (["--preset", "sparse100k", "--dp-shard"],
                   r"--dp-shard \(data-parallel SVI\) is not yet ported"),
-    "nlfm": ([], "--model nlfm is not yet ported"),
+    "nlfm": (["--posterior-samples", "4"], r"--posterior-samples \(HMC\) is not yet ported"),
     "delaysimm": (["--posterior-samples", "4"], r"--posterior-samples \(HMC\) is not yet ported"),
 }
 
 
 @pytest.mark.parametrize("model", ["multisimm", "nlfm", "delaysimm"])
 def test_cli_refuses_the_families_not_yet_ported(model):
-    """The nonlinear family is not ported; of the multi-force and delay
-    families, the sparse route's data-parallel SVI and the HMC flag are
-    not."""
+    """Of the multi-force, nonlinear and delay families, the sparse route's
+    data-parallel SVI and the HMC flag are not ported."""
     extra, msg = NOT_YET_PORTED[model]
     with pytest.raises(SystemExit, match=msg):
         tmain.main(["--model", model, *extra, "--device", "cpu"])
