@@ -222,8 +222,25 @@ it on a parent tree and on this one, in turns, to compare them. Phases (each rai
     3 steps, or 2 when a step passes 5 s; the first step rel 1e-4 of
     float64; step ms, host us per filter step, host syncs at T = 50 and
     200, peak memory, recovery; kernels per filter step and the busy share
-    at T = 10). Then the script's total time.
-11. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+    at T = 10).
+11. Hamiltonian Monte Carlo (:func:`hmc_phases`, ``training.hmc`` on every
+    ``--posterior-samples`` route; their total wall seconds on a line of
+    its own): ``[hmc p53]`` (the canonical route's posterior, 20 draws, f64:
+    one K2 and one K2 bwd per gradient, C x (1 + 24 x 2n), and the BMA
+    band's K1 and two K2 a component; card against CPU on one table of
+    draws made on the CPU, 8 warmup + 8 draws, within rel 1e-8; host syncs
+    inside and outside the density's evaluations at n = 4 and 8 (the
+    sampler's own must not grow) and peak memory (within 1 MiB); ms per
+    gradient, trajectory and draw; 4 chains in lockstep with R-hat and ESS;
+    step size 1e3: accept rate 0, no exception, no extra sync); ``[hmc nlfm
+    p53]`` and ``[hmc delay p53]`` (the routes through ``run_nonlinear`` /
+    ``run_delay``, then card against CPU on fed draws within rel 1e-8, ms a
+    draw; the delay route one K2, K2 bwd and plain row VJP per gradient);
+    ``[hmc dense ss]`` and ``[hmc dense delay ss]`` (dense10k, 50 x 200,
+    f32, 10 leapfrog steps, n = 2 / 1: ms a draw and a gradient, peak
+    memory, host syncs inside the likelihood's evaluations by source line
+    and none outside them). Then the script's total time.
+12. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 """
 
 import importlib.util
@@ -758,6 +775,57 @@ def count_syncs(fn):
             torch.cuda.set_sync_debug_mode("default")
     return out, sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
                     for w in caught)
+
+
+def count_sampler_syncs(fn):
+    """``(fn(), per_evaluation, outside, where)``: the host synchronisations
+    (as :func:`count_syncs` counts them) of ``fn()``, split into those inside
+    each log-density evaluation of ``training.hmc`` (its value and gradient,
+    one entry a call) and those outside them, the sampler's own; ``where``
+    counts the outside ones and the evaluations' by the source line that
+    raised them."""
+    import collections
+    import warnings
+
+    import torch
+
+    from dis_project_tpu_torch.training import hmc
+
+    real = hmc._value_and_grad
+    per_eval, where = [], collections.Counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        seen = {"n": 0, "i": 0}
+
+        def syncs():
+            for w in caught[seen["i"]:]:
+                if "synchroniz" in str(w.message) and "prototype" not in str(w.message):
+                    seen["n"] += 1
+                    where[f"{os.path.basename(w.filename)}:{w.lineno}"] += 1
+            seen["i"] = len(caught)
+            return seen["n"]
+
+        def counted(*args, **kwargs):
+            vg = real(*args, **kwargs)
+
+            def wrapped(q):
+                before = syncs()
+                out = vg(q)
+                per_eval.append(syncs() - before)
+                return out
+
+            return wrapped
+
+        hmc._value_and_grad = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            hmc._value_and_grad = real
+        total = syncs()
+    return out, per_eval, total - sum(per_eval), dict(where)
 
 
 def device_kernels_and_busy_ms(fn):
@@ -2834,6 +2902,420 @@ def nlfm_phases(drive, smi):
           f"{time.perf_counter() - t0:.1f} s ({smi})")
 
 
+# The HMC phases' sizes: the p53 route's --posterior-samples, the fed-draw
+# parity runs (card against CPU; 8 takes both warmup windows), the lockstep
+# chains, and the dense routes' draws.
+HMC_ROUTE_DRAWS, HMC_PARITY_DRAWS, HMC_FAMILY_DRAWS = 20, 8, 4
+HMC_CHAINS, HMC_CHAIN_DRAWS = 4, 10
+HMC_DENSE_DRAWS, HMC_DENSE_DELAY_DRAWS = 2, 1
+
+
+def _hmc_rel(card, host):
+    """max abs / max(1, max|cpu|) of each HMC output, card against CPU."""
+    from dis_project_tpu_torch.training import generic
+
+    rels = {name: _rel(getattr(card, name), getattr(host, name))
+            for name in ("accept_rate", "step_size", "log_probs")}
+    rels["samples"] = max(_rel(a, b) for a, b in zip(generic.tree_leaves(card.samples),
+                                                      generic.tree_leaves(host.samples)))
+    return rels
+
+
+def _hmc_fed_draws(n, dim):
+    """One table of draws for n warmup and n sampling trajectories of one
+    chain, made on the CPU from a seed: ``(cpu draws, card draws)``."""
+    import torch
+
+    from dis_project_tpu_torch.training import hmc
+
+    gen = torch.Generator().manual_seed(11)
+    host = tuple(hmc.draw_tables(gen, n, 1, dim, torch.float64, "cpu") for _ in range(2))
+    card = tuple(hmc.HMCDraws(*(a.to("cuda") for a in d)) for d in host)
+    return host, card
+
+
+def _to_device(tree, dev):
+    from dis_project_tpu_torch.training import generic
+
+    return generic.tree_unflatten(tree, [a.to(dev) for a in generic.tree_leaves(tree)])
+
+
+def _launched(before):
+    """The kernel launches since the snapshot ``before``."""
+    from dis_project_tpu_torch.ops import cuda_gram
+
+    now = {**cuda_gram.LAUNCHES, **cuda_gram.PLAIN_X_GRADS}
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+def _snapshot():
+    from dis_project_tpu_torch.ops import cuda_gram
+
+    return {**cuda_gram.LAUNCHES, **cuda_gram.PLAIN_X_GRADS}
+
+
+def busy_line(kernels, busy_ms, wall_ms):
+    """The device's kernels and busy share over a call, or "not measured"."""
+    if busy_ms is None:
+        return "device busy share not measured (no device time in the trace)"
+    return (f"{kernels} device kernels, busy {busy_ms:.3f} ms, share "
+            f"{busy_ms / wall_ms:.3f}")
+
+
+def _timed(fn):
+    """``(fn(), seconds)`` on the host clock, the card synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hmc_p53(drive, smi):
+    """``[hmc p53]``: the canonical route's posterior (``main.kinetics_posterior``
+    after ``main.fit_and_predict``, 150 f64 steps, ``--posterior-samples``
+    HMC_ROUTE_DRAWS): one K2 and one K2 bwd per gradient evaluation, C x (1 +
+    24 x 2n) each, and the BMA band's K1 and two K2 per component. Then at
+    the trained point: ``kinetics_posterior`` on the card against the CPU on
+    one table of draws made on the CPU (HMC_PARITY_DRAWS warmup and draws):
+    samples, step size, accept rate and log-probs within rel 1e-8 (so every
+    accept decision is the same); host syncs and peak memory of the sampler
+    at n = 4 and 8 beside the density's syncs per value and gradient (the
+    sampler's own share, the total less evaluations x the density's, must not
+    grow with n; the peaks within 1 MiB); ms per gradient, per trajectory and
+    per draw from CUDA events; HMC_CHAINS chains in lockstep (R-hat, ESS, ms
+    per lockstep draw); a proposal forced into the non-PD region (step size
+    1e3): accept rate 0, no exception, no sync beyond the sampler's share."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.models import simm
+    from dis_project_tpu_torch.ops import bijectors as bij
+    from dis_project_tpu_torch.training import hmc
+
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hmc_")
+    n = HMC_ROUTE_DRAWS
+    config = cfg.RunConfig(preset="p53", device="cuda", posterior_samples=n,
+                           out_dir=os.path.join(tmp, "plots"))
+    canon = port_main.fit_and_predict(config)
+    route_s = drive("hmc p53 route", lambda: _timed(
+        lambda: port_main.kinetics_posterior(config, canon))[1],
+        ("gram_sym", "gram_sym_bwd", "gram_rect"))
+    got = _launched({})
+    evals = 1 + 24 * 2 * n
+    comps = min(64, n)
+    want = {"gram_sym": evals + 2 * comps, "gram_sym_bwd": evals, "gram_rect": comps}
+    print(f"[hmc p53] route (--posterior-samples {n}, 1 chain, f64, N=35): {route_s:.3f} s "
+          f"({1e3 * route_s / n:.1f} ms a draw with its warmup trajectory, BMA included); "
+          f"accept rate {float(canon.posterior.accept_rate):.3f}, step size "
+          f"{float(canon.posterior.step_size):.4f}; launches {got} (want K2 {want['gram_sym']} = "
+          f"1 + 24 x 2n + 2 x {comps} BMA components, K2 bwd {evals}, K1 {comps}) ({smi})")
+    require(all(got[k] == v for k, v in want.items()), f"hmc p53 route launches {got}, not {want}")
+    require(bool(torch.isfinite(canon.posterior.log_probs).all()), "hmc p53: log-probs not finite")
+    model, X, y, var, t_grid = canon.model, canon.X, canon.y, canon.var, canon.t_grid
+    params = canon.result.params
+
+    # The BMA band alone: its ms and launches.
+    before = _snapshot()
+    (bma, comp), bma_s = _timed(lambda: hmc.mixture_predict(
+        lambda p: model.latent_predict(p, t_grid, X, y, var), canon.posterior.samples))
+    bma_launched = _launched(before)
+    print(f"[hmc p53] BMA band ({comp.shape[0]} of {comps} components kept): {1e3 * bma_s:.1f} ms, "
+          f"launches {bma_launched} ({smi})")
+    require(bma_launched["gram_rect"] == comps and bma_launched["gram_sym"] == 2 * comps,
+            f"hmc p53 BMA launches {bma_launched}")
+
+    # Card against the CPU on one table of draws.
+    np_ = HMC_PARITY_DRAWS
+    draws_h, draws_c = _hmc_fed_draws(np_, 17)
+    p_cpu = _to_device(params, "cpu")
+    host = hmc.kinetics_posterior(model, p_cpu, X.cpu(), y.cpu(), None, num_warmup=np_,
+                                  num_samples=np_, draws=draws_h)
+    before = _snapshot()
+    card, card_s = _timed(lambda: hmc.kinetics_posterior(model, params, X, y, None,
+                                                         num_warmup=np_, num_samples=np_,
+                                                         draws=draws_c))
+    fed = _launched(before)
+    rels = _hmc_rel(card, host)
+    ev = 1 + 24 * 2 * np_
+    print(f"[hmc p53] fed draws ({np_} warmup, {np_} draws), card vs cpu, max abs / max(1, "
+          f"max|cpu|): {json.dumps(rels)} (limit 1e-8); accept rate card "
+          f"{float(card.accept_rate)!r} cpu {float(host.accept_rate)!r}; K2 {fed['gram_sym']}, "
+          f"K2 bwd {fed['gram_sym_bwd']} (want {ev} = 1 + 24 x 2n each) ({smi})")
+    require(max(rels.values()) <= 1e-8, f"hmc p53 card vs cpu: {rels}")
+    require(fed["gram_sym"] == ev and fed["gram_sym_bwd"] == ev, f"hmc p53 fed launches {fed}")
+
+    # Syncs and peak memory of the sampler at n = 4 and 8, the density's
+    # syncs per value and gradient beside them.
+    raw = simm.unconstrain(params)
+
+    def logdensity(r):
+        return model.mll(simm.constrain(r), X, y) + bij.constrain_log_det(r, simm.SIMM_BIJECTORS)
+
+    flat, unravel = hmc.ravel(raw)
+    vg = hmc._value_and_grad(logdensity, unravel)
+    _, vg_syncs = count_syncs(lambda: vg(flat[None]))
+    own, peak, per = {}, {}, {}
+    for k in (4, 8):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _, per[k], own[k], _ = count_sampler_syncs(lambda: hmc.kinetics_posterior(
+            model, params, X, y, gen, num_warmup=k, num_samples=k))
+        peak[k] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        require(len(per[k]) == 1 + 48 * k, f"hmc p53: {len(per[k])} evaluations at n={k}")
+    grad_ms = cuda_ms(lambda: vg(flat[None]), reps=20)
+    grad_kernels, grad_busy = device_kernels_and_busy_ms(lambda: vg(flat[None]))
+    run_ms = cuda_ms(lambda: hmc.kinetics_posterior(
+        model, params, X, y, torch.Generator(device=dev).manual_seed(7), num_warmup=8,
+        num_samples=8), reps=3, warmup=0)
+    print(f"[hmc p53] host syncs: the density's per value and gradient {vg_syncs} alone, "
+          f"{sorted(set(per[4] + per[8]))} inside the sampler's {len(per[4])} / {len(per[8])} "
+          f"evaluations; the sampler's own n=4 {own[4]} n=8 {own[8]}; peak memory n=4 "
+          f"{peak[4]:.3f} MiB n=8 {peak[8]:.3f} MiB (limit: equal within 1 MiB); ms per gradient "
+          f"{grad_ms:.3f} ({busy_line(grad_kernels, grad_busy, grad_ms)}), per trajectory (24 "
+          f"gradients) {run_ms / 16:.3f}, per draw with its warmup trajectory {run_ms / 8:.3f} "
+          f"(n=8 run {run_ms:.1f} ms) ({smi})")
+    require(own[8] <= own[4], f"hmc p53: the sampler's syncs grow with draws: {own}")
+    require(abs(peak[8] - peak[4]) <= 1.0, f"hmc p53: peak memory grows with draws: {peak}")
+
+    # Chains in lockstep.
+    C, nc = HMC_CHAINS, HMC_CHAIN_DRAWS
+    chains_s = {}
+
+    def chains():
+        gen = torch.Generator(device=dev).manual_seed(8)
+        res, chains_s["s"] = _timed(lambda: hmc.kinetics_posterior(
+            model, params, X, y, gen, num_warmup=nc, num_samples=nc, num_chains=C))
+        return res
+
+    res = drive("hmc p53 chains", chains, ("gram_sym", "gram_sym_bwd"))
+    got = _launched({})
+    rhat, ess = hmc.pytree_diagnostics(res.samples)
+    want_c = C * (1 + 24 * 2 * nc)
+    print(f"[hmc p53] {C} chains in lockstep, {nc} warmup + {nc} draws each: "
+          f"{chains_s['s']:.3f} s ({1e3 * chains_s['s'] / nc:.1f} ms a lockstep draw with its "
+          f"warmup); accept rates {[round(a, 3) for a in res.accept_rate.tolist()]}; max "
+          f"split-R-hat {rhat:.4f}, min ESS {ess:.1f} of {C * nc}; K2 {got['gram_sym']} K2 bwd "
+          f"{got['gram_sym_bwd']} (want {want_c} = C x (1 + 24 x 2n)) ({smi})")
+    require(got["gram_sym"] == want_c and got["gram_sym_bwd"] == want_c,
+            f"hmc p53 chains launches {got}")
+
+    # A proposal forced into the non-PD region.
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bad, bad_per, bad_own, _ = count_sampler_syncs(lambda: hmc.sample(
+        logdensity, raw, gen, num_warmup=0, num_samples=2, initial_step_size=1e3))
+    print(f"[hmc p53] step size 1e3 (proposals in the non-PD region): accept rate "
+          f"{float(bad.accept_rate)!r}, log-probs {bad.log_probs.tolist()}; host syncs inside "
+          f"the {len(bad_per)} evaluations {sum(bad_per)}, the sampler's own {bad_own} (limit "
+          f"{own[4]}) ({smi})")
+    require(float(bad.accept_rate) == 0.0, "hmc p53: a non-PD proposal was accepted")
+    require(bool(torch.isfinite(bad.log_probs).all()), "hmc p53: the chain left its finite state")
+    require(bad_own <= own[4], f"hmc p53: the non-PD run synced {bad_own} times")
+    shutil.rmtree(tmp)
+    return dict(draw_ms=run_ms / 8, grad_ms=grad_ms, route_s=route_s, rhat=rhat, ess=ess)
+
+
+def hmc_family_p53(drive, smi, model_name):
+    """``[hmc nlfm p53]`` / ``[hmc delay p53]``: the route through its entry
+    point (``main.run_nonlinear``: Q = 97, exp, 200 MAP steps; ``main.run_delay``:
+    150 steps; float64, ``--posterior-samples`` HMC_FAMILY_DRAWS) on the card,
+    then the posterior at the trained point on the card against the CPU on one
+    table of draws made on the CPU (HMC_FAMILY_DRAWS warmup and draws):
+    samples, step size, accept rate and log-probs within rel 1e-8; ms per
+    draw. nlfm launches no kernel; the delay route's every gradient launches
+    one K2, one K2 bwd and one plain VJP of the rows (the delays')."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import P53Data, train_arrays
+    from dis_project_tpu_torch.models import delaysimm, nlfm
+
+    tag = f"hmc {'nlfm' if model_name == 'nlfm' else 'delay'} p53"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hmc_")
+    n = HMC_FAMILY_DRAWS
+    evals = 1 + 24 * 2 * n
+    config = cfg.RunConfig(model=model_name, device="cuda", posterior_samples=n,
+                           num_iters=200 if model_name == "nlfm" else 150,
+                           out_dir=os.path.join(tmp, "plots"))
+    data = P53Data(replicate=0, source="synthetic", seed=0)
+    if model_name == "nlfm":
+        route = port_main.run_nonlinear
+        must, kw = (), dict(launch_free=True)
+        model = nlfm.NonlinearLFM(num_genes=5, response="exp", t_max=12.0, num_quad=97,
+                                  jitter=cfg.SPARSE_JITTER)
+        arrays = {dev: tuple(torch.as_tensor(a, device=dev) for a in (
+            data.timepoints, data.gene_expressions, data.gene_variances))
+            for dev in ("cuda", "cpu")}
+
+        def posterior(p, dev, draws):
+            return nlfm.force_posterior_hmc(model, p, *arrays[dev], None, num_warmup=n,
+                                            num_samples=n, draws=draws)
+        dim = 17 + 97
+    else:
+        route = port_main.run_delay
+        must = ("gram_sym", "gram_sym_bwd", "gram_rect")
+        kw = dict(x_grads=lambda out: len(out.result.history) + out.result.guard_count + evals)
+        model = delaysimm.ExactDelaySIMM(num_genes=5, jitter=cfg.EXACT_JITTER)
+        arrays = {dev: train_arrays(data, dev, torch.float64)[:2] for dev in ("cuda", "cpu")}
+
+        def posterior(p, dev, draws):
+            return delaysimm.kinetics_posterior(model, p, *arrays[dev], None, num_warmup=n,
+                                                num_samples=n, draws=draws)
+        dim = 22
+    out = drive(f"{tag} route", lambda: _in_dir(tmp, lambda: route(config)), must, **kw)
+    post = out.posterior
+    print(f"[{tag}] route (--posterior-samples {n}, f64): accept rate "
+          f"{float(post.accept_rate):.3f}, step size {float(post.step_size):.4f}, band "
+          f"{'kept' if out.bma is not None else 'skipped'} ({smi})")
+    require(bool(torch.isfinite(post.log_probs).all()), f"{tag}: log-probs not finite")
+
+    draws_h, draws_c = _hmc_fed_draws(n, dim)
+    params = out.result.params
+    host = posterior(_to_device(params, "cpu"), "cpu", draws_h)
+    before = _snapshot()
+    card, card_s = _timed(lambda: posterior(params, "cuda", draws_c))
+    fed = _launched(before)
+    rels = _hmc_rel(card, host)
+    per_grad = {k: v / evals for k, v in fed.items()}
+    print(f"[{tag}] fed draws ({n} warmup, {n} draws), card vs cpu, max abs / max(1, "
+          f"max|cpu|): {json.dumps(rels)} (limit 1e-8); {1e3 * card_s / n:.1f} ms a draw with "
+          f"its warmup trajectory ({1e3 * card_s / evals:.2f} ms a gradient); launches per "
+          f"gradient {json.dumps(per_grad)} ({smi})")
+    require(max(rels.values()) <= 1e-8, f"{tag} card vs cpu: {rels}")
+    if model_name == "nlfm":
+        require(not any(fed.values()), f"{tag}: a kernel was launched: {fed}")
+    else:
+        require(fed["gram_sym"] == fed["gram_sym_bwd"] == fed["gram_sym_x"] == evals
+                and fed["gram_rect"] == 0, f"{tag}: launches {fed}, want {evals} each")
+    shutil.rmtree(tmp)
+    return dict(draw_ms=1e3 * card_s / n)
+
+
+def hmc_dense(drive, smi, model_name):
+    """``[hmc dense ss]`` / ``[hmc dense delay ss]`` at dense10k's full width
+    (50 x 200, float32, order 10, 10 leapfrog steps as in the JAX package).
+    simm: ``main.run_dense`` (--mll-engine ss, 3 steps) and
+    ``main.dense_ss_posterior`` (--posterior-samples HMC_DENSE_DRAWS, the BMA
+    band of the smoothed force) as the route; delaysimm: the route's sampler
+    ``hmc.delay_posterior_ss`` at the generator's data and the initial point
+    (HMC_DENSE_DELAY_DRAWS; its step is ~1 s). Then the sampler alone in
+    ``count_syncs``: ms per draw and per gradient, peak memory, and its host
+    syncs, which must equal the evaluations (1 + 10 x 2n) x the likelihood's
+    own syncs per loss and gradient (the sampler adds none). No kernel
+    launches."""
+    import torch
+
+    from dis_project_tpu_torch import config as cfg
+    from dis_project_tpu_torch import main as port_main
+    from dis_project_tpu_torch.data.dataset import train_arrays
+    from dis_project_tpu_torch.models import delaysimm, simm
+    from dis_project_tpu_torch.ops import bijectors as bij
+    from dis_project_tpu_torch.ops import statespace as ss
+    from dis_project_tpu_torch.training import hmc
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    G, T = DENSE_GENES, DENSE_TIMEPOINTS
+    jitter = cfg.EXACT_JITTER
+    if model_name == "simm":
+        tag, n = "hmc dense ss", HMC_DENSE_DRAWS
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_hmc_")
+        config = cfg.RunConfig(preset="dense10k", mll_engine="ss", x64=False, device="cuda",
+                               num_iters=3, posterior_samples=n, synth_genes=G,
+                               synth_timepoints=T, out_dir=tmp)
+        route_s = {}
+
+        def route():
+            out = port_main.run_dense(config)
+            _, route_s["s"] = _timed(lambda: port_main.dense_ss_posterior(config, out))
+            return out
+
+        out = drive(f"{tag} route", route, (), launch_free=True)
+        shutil.rmtree(tmp)
+        print(f"[{tag}] route (--posterior-samples {n}, N={G * T}, f32): posterior and BMA band "
+              f"{route_s['s']:.3f} s; accept rate {float(out.posterior.accept_rate):.3f}, "
+              f"step size {float(out.posterior.step_size):.4f}, band "
+              f"{'kept' if out.bma is not None else 'skipped'} ({smi})")
+        params, y = out.result.params, out.y
+        t = torch.as_tensor(out.data.timepoints, dtype=f32, device=dev)
+
+        def logdensity(r):
+            return ss.lfm_mll_ss(simm.constrain(r), t, y, jitter=jitter) + bij.constrain_log_det(
+                r, simm.SIMM_BIJECTORS)
+
+        def sampler(gen):
+            return hmc.kinetics_posterior_ss(params, t, y, gen, jitter=jitter, num_warmup=n,
+                                             num_samples=n)
+        raw = simm.unconstrain(params)
+    else:
+        tag, n = "hmc dense delay ss", HMC_DENSE_DELAY_DRAWS
+        data = port_main.synthetic_delay_data(G, T, 0, f32, dev)
+        _, y, _ = train_arrays(data, dev, f32)
+        t = torch.as_tensor(data.timepoints, dtype=f32, device=dev)
+        params = delaysimm.init_params(G, f32, dev)
+
+        def logdensity(r):
+            return ss.delaysimm_mll_ss(delaysimm.constrain(r), t, y, jitter=jitter) + \
+                bij.constrain_log_det(r, delaysimm.DELAY_BIJECTORS)
+
+        def sampler(gen):
+            return hmc.delay_posterior_ss(params, t, y, gen, jitter=jitter, num_warmup=n,
+                                          num_samples=n)
+        raw = delaysimm.unconstrain(params)
+    flat, unravel = hmc.ravel(raw)
+    vg = hmc._value_and_grad(logdensity, unravel)
+    (_, first_syncs), _ = _timed(lambda: count_syncs(lambda: vg(flat[None])))
+    (_, vg_syncs), vg_s = _timed(lambda: count_syncs(lambda: vg(flat[None])))
+    evals = 1 + 10 * 2 * n
+    held = {}
+
+    def run():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held["base"] = torch.cuda.memory_allocated(dev)
+        (res, held["per"], held["own"], held["where"]), held["s"] = _timed(
+            lambda: count_sampler_syncs(lambda: sampler(torch.Generator(device=dev).manual_seed(7))))
+        return res
+
+    res = drive(f"{tag} sampler", run, (), launch_free=True)
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - held["base"]) / 2**30
+    wall, per = held["s"], held["per"]
+    print(f"[{tag}] sampler ({n} warmup + {n} draws, {evals} gradient evaluations, N={G * T}, "
+          f"f32): {wall:.3f} s, {1e3 * wall / n:.1f} ms a draw with its warmup trajectory, "
+          f"{1e3 * wall / evals:.1f} ms a gradient (one loss and gradient alone "
+          f"{1e3 * vg_s:.1f} ms); accept rate {float(res.accept_rate):.3f}; peak memory "
+          f"{peak_gib:.3f} GiB; host syncs inside the {len(per)} evaluations {sum(per)} (each "
+          f"{sorted(set(per))}; one loss and gradient alone {vg_syncs}, the process's first "
+          f"{first_syncs}), {sum(per) / n:.1f} a draw, the sampler's own {held['own']} (limit 0); "
+          f"by line {json.dumps(held['where'])} ({smi})")
+    require(len(per) == evals, f"{tag}: {len(per)} evaluations, not {evals}")
+    require(held["own"] == 0, f"{tag}: the sampler synced {held['own']} times")
+    require(bool(torch.isfinite(res.log_probs).all()), f"{tag}: log-probs not finite")
+    return dict(draw_ms=1e3 * wall / n, peak_gib=peak_gib)
+
+
+def hmc_phases(drive, smi):
+    """The HMC phases (``training.hmc`` on every --posterior-samples route);
+    prints their total wall seconds."""
+    t0 = time.perf_counter()
+    p53 = hmc_p53(drive, smi)
+    fam = {m: hmc_family_p53(drive, smi, m) for m in ("nlfm", "delaysimm")}
+    dense = {m: hmc_dense(drive, smi, m) for m in ("simm", "delaysimm")}
+    print(f"[hmc] ms a draw with its warmup trajectory: p53 {p53['draw_ms']:.1f} (a gradient "
+          f"{p53['grad_ms']:.3f}), nlfm p53 {fam['nlfm']['draw_ms']:.1f}, delay p53 "
+          f"{fam['delaysimm']['draw_ms']:.1f}, dense ss {dense['simm']['draw_ms']:.1f} "
+          f"({dense['simm']['peak_gib']:.3f} GiB), dense delay ss "
+          f"{dense['delaysimm']['draw_ms']:.1f} ({dense['delaysimm']['peak_gib']:.3f} GiB) ({smi})")
+    print(f"[hmc phases] hmc p53, hmc nlfm p53, hmc delay p53, hmc dense ss and hmc dense delay "
+          f"ss took {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main():
     import torch
 
@@ -3928,6 +4410,7 @@ def main():
     family_phases(drive, smi)
     sparse_phases(drive, smi)
     nlfm_phases(drive, smi)
+    hmc_phases(drive, smi)
 
     # -- phase 5: summary lines -------------------------------------------
     for k, v in main_counts.items():

@@ -95,8 +95,12 @@ class RunConfig:
     checkpoint_dir: Optional[str] = None
     resume: bool = False
     metrics_path: Optional[str] = None  # JSONL per-step metrics
-    # post-training HMC draws (not yet ported)
+    # post-training HMC draws over the hyperparameters (0 = off); seeds the
+    # chain at the trained point
     posterior_samples: int = 0
+    # independent HMC chains, advanced in lockstep; > 1 adds split-R-hat /
+    # ESS convergence diagnostics
+    posterior_chains: int = 1
 
     @property
     def exact_jitter(self) -> float:
@@ -199,7 +203,14 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
                         "--checkpoint-dir (params + optimizer state)")
     parser.add_argument("--metrics-path", default=None)
     parser.add_argument("--posterior-samples", type=int, default=d.posterior_samples,
-                        help="post-training HMC draws (not yet ported)")
+                        help="after training, draw this many HMC posterior "
+                        "samples over the hyperparameters (exact-MLL "
+                        "likelihood, flat prior in constrained space) and "
+                        "report credible intervals for the kinetics")
+    parser.add_argument("--posterior-chains", type=int, default=d.posterior_chains,
+                        help="independent HMC chains, advanced in lockstep "
+                        "(> 1 adds split-R-hat / ESS convergence "
+                        f"diagnostics; default {d.posterior_chains})")
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
@@ -244,4 +255,5 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         resume=args.resume,
         metrics_path=args.metrics_path,
         posterior_samples=args.posterior_samples,
+        posterior_chains=args.posterior_chains,
     )

@@ -132,3 +132,18 @@ def sv_adam_state_from_numpy(count, mu, nu, train_z: bool = True, device=None,
         return svtrainer.flatten(svlfm_params_from_numpy(m, device, dtype), train_z)
 
     return AdamState(int(np.asarray(count)), leaves(mu), leaves(nu))
+
+
+def hmc_draws_from_numpy(momenta, jitter, accept, device=None, dtype=PARITY_DTYPE):
+    """One HMC phase's ``training.hmc.HMCDraws`` from array-likes: momenta
+    (n, C, d) standard normals, jitter (n, C) step-size factors, accept (n,
+    C) uniforms (e.g. the JAX package's draws of ``sample``'s keys). Tables
+    of one chain may come without the chain axis: (n, d), (n,), (n,)."""
+    from dis_project_tpu_torch.training.hmc import HMCDraws
+
+    dev = default_device(device)
+    momenta, jitter, accept = (np.array(a) for a in (momenta, jitter, accept))
+    if momenta.ndim == 2:
+        momenta, jitter, accept = momenta[:, None], jitter[:, None], accept[:, None]
+    return HMCDraws(*(torch.as_tensor(a, dtype=dtype, device=dev)
+                      for a in (momenta, jitter, accept)))

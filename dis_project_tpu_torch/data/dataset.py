@@ -84,6 +84,18 @@ class P53Data:
     def __len__(self) -> int:
         return self.num_replicates * self.num_genes
 
+    def __getitem__(self, index: int):
+        """(timepoints, expression) for flat index replicate-major over genes,
+        matching the reference's list ordering (``src/dataset.py:121-125``)."""
+        if index < 0 or index >= len(self):
+            raise IndexError("Index out of range")
+        r, g = divmod(index, self.num_genes)
+        return self.timepoints, self.gene_expressions[r, g]
+
+    @property
+    def shape(self):
+        return (len(self), 2, int(self.timepoints.shape[0]))
+
     def params_ground_truth(self):
         """Published Barenco kinetics (B, S, D), filtered to selected genes."""
         idx = np.asarray(self.selected_indices)
@@ -120,6 +132,19 @@ def dataset_3d(data, device=None, dtype: torch.dtype = PARITY_DTYPE):
     return tuple(
         torch.as_tensor(a, dtype=dtype, device=dev) for a in _encode_3d_host(data)
     )
+
+
+def flatten_blocked(data, device=None, dtype: torch.dtype = PARITY_DTYPE):
+    """Reference ALFI 1-D blocked encoding
+    (``src/gpytorch_alfi/model_alfi.py:545-569``): ``(train_t, train_y)``,
+    times tiled per (replicate, gene) block, gene identity implied by the
+    block's position."""
+    dev = default_device(device)
+    n_blocks = data.num_replicates * data.num_genes
+    train_t = np.tile(_host(data.timepoints), n_blocks)
+    train_y = _host(data.gene_expressions).reshape(-1)
+    return (torch.as_tensor(train_t, dtype=dtype, device=dev),
+            torch.as_tensor(train_y, dtype=dtype, device=dev))
 
 
 def train_arrays(data, device=None, dtype: torch.dtype = PARITY_DTYPE):

@@ -67,7 +67,19 @@ says otherwise:
   with ``--preset dense10k --mll-engine ss`` :func:`run_dense_nlfm`
   (``generate_ode_nonlinear`` data, the extended-Kalman marginal
   ``ops.statespace.nlfm_mll_ekf``, plain Adam, decay and sensitivity
-  recovery). ``--posterior-samples`` (HMC) is not yet ported.
+  recovery).
+- ``--posterior-samples n [--posterior-chains C]`` (``training.hmc``):
+  after the fit, n warmup and n HMC draws over the hyperparameters on C
+  chains in lockstep, from a generator seeded with ``--seed`` + 7, with
+  the credible-interval report, split-R-hat / ESS for C > 1 and the
+  hyperparameter-marginalised band: on the p53 and p53-replicates routes
+  (:func:`kinetics_posterior`, the exact MLL, K2 and K2's backward every
+  gradient on the card, the BMA band through K1 and K2), ``--model
+  delaysimm`` (:func:`delay_posterior`), ``--model nlfm``
+  (:func:`nonlinear_posterior`, the full-Bayes force band) and dense10k
+  ``--mll-engine ss`` with simm (:func:`dense_ss_posterior`) or delaysimm
+  (:func:`dense_delay_posterior`); refused elsewhere with the JAX
+  package's message.
 
 - ``--preset sparse100k`` (:func:`run_sparse`, BASELINE config 5): ODE
   quadrature data (``generate_ode``; ``generate_ode2`` with ``--model
@@ -111,6 +123,13 @@ class CanonicalRun:
     data: Any  # data.dataset.P53Data
     t_grid: torch.Tensor
     x_grid: torch.Tensor
+    model: Any = None  # models.simm.ExactSIMM
+    X: Optional[torch.Tensor] = None
+    y: Optional[torch.Tensor] = None
+    var: Optional[torch.Tensor] = None
+    # --posterior-samples: the HMC result (constrained draws) and the BMA band
+    posterior: Any = None
+    bma: Any = None
 
 
 @dataclasses.dataclass
@@ -131,6 +150,9 @@ class DenseRun:
     lf_grid: Optional[torch.Tensor] = None
     lf_mean: Optional[torch.Tensor] = None
     lf_var: Optional[torch.Tensor] = None
+    # --posterior-samples: the HMC result (constrained draws) and the BMA band
+    posterior: Any = None
+    bma: Any = None
 
 
 def _have_matplotlib() -> bool:
@@ -181,6 +203,132 @@ def write_dense_metrics(path: str, history) -> None:
     with open(path, "w") as f:
         for i, loss in enumerate(history.tolist()):
             f.write(json.dumps({"step": i, "loss": loss}) + "\n")
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def posterior_generator(config: cfg.RunConfig, device) -> torch.Generator:
+    """The HMC routes' random stream: a generator on the sampler's device
+    seeded with ``--seed`` + 7 (the JAX routes' ``PRNGKey(seed + 7)``)."""
+    return torch.Generator(device=device).manual_seed(config.seed + 7)
+
+
+def _finish_posterior(post, t0, config, data, save_name, kin_from=lambda s: s,
+                      max_report_genes=None):
+    """Shared tail of every HMC route: the timing and accept line (the
+    sampler's one host read), split-R-hat / ESS when more than one chain
+    ran, the chains pooled, and the credible-interval report. Returns the
+    pooled constrained samples. ``kin_from`` extracts the SIMMParams-like
+    kinetics view (``.kinetics`` on nlfm); ``max_report_genes`` caps the
+    table and the histogram grid."""
+    from dis_project_tpu_torch.training import checkpoint as ckpt
+    from dis_project_tpu_torch.training import hmc
+
+    acc = np.atleast_1d(_host(post.accept_rate))
+    eps = np.atleast_1d(_host(post.step_size))
+    print(f"Sampled in {time.perf_counter() - t0:.2f}s "
+          f"(accept rate {', '.join(f'{a:.2f}' for a in acc)}; "
+          f"step size {', '.join(f'{e:.4f}' for e in eps)})")
+    samples = post.samples
+    if config.posterior_chains > 1:
+        rhat, ess = hmc.pytree_diagnostics(samples)
+        total = config.posterior_chains * config.posterior_samples
+        print(f"convergence over {config.posterior_chains} chains: "
+              f"max split-R-hat {rhat:.4f} (converged: < ~1.05), "
+              f"min ESS {ess:.0f} of {total} draws")
+        samples = ckpt.tree_unflatten(samples, [
+            a.reshape((-1,) + tuple(a.shape[2:])) for a in ckpt.tree_leaves(samples)])
+    _report_kinetics_posterior(kin_from(samples), data, save_name, config.out_dir,
+                               max_genes=max_report_genes)
+    return samples
+
+
+def _plot_bma_latent(predict_fn, samples, plugin_dist, t_grid, data, config, save_base, title):
+    """Shared BMA tail of the exact, delay and dense ss posterior routes:
+    marginalise the pooled draws through ``predict_fn``
+    (``hmc.mixture_predict``, at most 64 components), report the band's
+    widening against the plug-in predictive and any dropped non-PSD
+    components, and write ``lf_<save_base>.png`` where matplotlib is.
+    Returns the BMA Gaussian, or None when every component was dropped."""
+    from dis_project_tpu_torch.training import checkpoint as ckpt
+    from dis_project_tpu_torch.training import hmc
+
+    max_components = 64
+    requested = min(max_components, ckpt.tree_leaves(samples)[0].shape[0])
+    bma, comp = hmc.mixture_predict(predict_fn, samples, max_components=max_components)
+    if comp.shape[0] == 0:
+        print("BMA latent force: every mixture component landed where the "
+              "reference-convention covariance fails PSD (non-finite "
+              "predictive) — skipping the BMA band")
+        return None
+    dropped = requested - comp.shape[0]
+    drop_note = f"; {dropped} non-PSD draws dropped" if dropped else ""
+    widen = float(torch.mean(bma.stddev() / plugin_dist.stddev()))
+    print(f"BMA latent-force band ({comp.shape[0]} mixture components"
+          f"{drop_note}): mean stddev {widen:.2f}x the plug-in band")
+    if _have_matplotlib():
+        from dis_project_tpu_torch.reporting import plotter
+
+        plotter.plot_lf(t_grid, bma, y_scatter=data.f_observed, scatter_times=data.timepoints,
+                        title=title, save_name=save_base, out_dir=config.out_dir)
+    else:
+        print("matplotlib is not installed: the BMA band is not drawn")
+    return bma
+
+
+class _KineticsReportView:
+    """Gene-truncated view of a dataset for the posterior report plots:
+    the two members ``plot_posterior_kinetics`` reads."""
+
+    def __init__(self, gene_names, truth):
+        self.gene_names = gene_names
+        self._truth = truth
+
+    def params_ground_truth(self):
+        return self._truth
+
+
+def _report_kinetics_posterior(kin_samples, data, save_name, out_dir, max_genes=None):
+    """Unclamped-model note, credible-interval table and (where matplotlib
+    is) the histogram grid ``posterior_kinetics[_<save_name>].png`` for HMC
+    kinetics samples with stacked (draws, G) ``basal`` / ``sensitivity`` /
+    ``decay``. ``max_genes`` truncates the table and the grid to the first
+    K genes."""
+    print(
+        "NOTE: the posterior is over the UNCLAMPED model — the p21 "
+        "identifiability clamp is a point constraint the full "
+        "posterior does not impose, so scale-coupled parameters "
+        "(S x force amplitude, and decays through them) show the "
+        "broad/shifted intervals the clamp exists to resolve."
+    )
+    names = list(data.gene_names)
+    kin = {k: _host(v) for k, v in kin_samples._asdict().items()}
+    if max_genes is not None and len(names) > max_genes:
+        print(f"(reporting the first {max_genes} of {len(names)} genes)")
+        names = names[:max_genes]
+        for k in ("basal", "sensitivity", "decay"):  # per-gene leaves only
+            kin[k] = kin[k][..., :max_genes]
+        truth = tuple(_host(v).ravel()[:max_genes] for v in data.params_ground_truth())
+        data = _KineticsReportView(names, truth)
+    print("\nPosterior kinetics (mean +/- std [5%, 95%]):")
+    for key in ("basal", "sensitivity", "decay"):
+        vals = kin[key]
+        if vals.ndim == 1:
+            vals = vals[:, None]
+        for g, name in enumerate(names[: vals.shape[1]]):
+            lo, hi = np.percentile(vals[:, g], [5, 95])
+            print(f"  {key[:4]:<5} {name:<10} "
+                  f"{vals[:, g].mean():.4f} +/- {vals[:, g].std():.4f} "
+                  f"[{lo:.4f}, {hi:.4f}]")
+    if _have_matplotlib():
+        from dis_project_tpu_torch.reporting import plotter
+
+        plotter.plot_posterior_kinetics({k: kin[k] for k in ("basal", "sensitivity", "decay")},
+                                        data, save_name=save_name, out_dir=out_dir)
+    else:
+        print("matplotlib is not installed: the posterior histograms are not drawn")
 
 
 def fit_and_predict(config: cfg.RunConfig) -> CanonicalRun:
@@ -244,12 +392,39 @@ def fit_and_predict(config: cfg.RunConfig) -> CanonicalRun:
     latent = model.latent_predict(result.params, t_grid, X, y, var)
     x_grid = expression_grid(data.num_genes, t=100, dtype=dtype, device=dev)
     expression = model.multi_gene_predict(result.params, x_grid, X, y, var)
-    return CanonicalRun(result, latent, expression, data, t_grid, x_grid)
+    return CanonicalRun(result, latent, expression, data, t_grid, x_grid, model, X, y, var)
+
+
+def kinetics_posterior(config: cfg.RunConfig, out: CanonicalRun) -> None:
+    """``--posterior-samples`` on the canonical routes: HMC over the
+    hyperparameters (``training.hmc.kinetics_posterior``: the exact MLL,
+    on the card through K2 and K2's backward, a flat prior in constrained
+    space, the chains seeded at the trained point), the report, and the
+    hyperparameter-marginalised (BMA) latent force through
+    ``latent_predict`` (K1 and K2 on the card) beside the plug-in band.
+    Sets ``out.posterior`` and ``out.bma``."""
+    from dis_project_tpu_torch.training import hmc
+
+    n_draws = config.posterior_samples
+    print(f"Sampling hyperparameter posterior: {n_draws} HMC draws "
+          f"({n_draws} warmup)...")
+    t0 = time.perf_counter()
+    out.posterior = hmc.kinetics_posterior(
+        out.model, out.result.params, out.X, out.y, posterior_generator(config, out.X.device),
+        num_warmup=n_draws, num_samples=n_draws, num_chains=config.posterior_chains)
+    samples = _finish_posterior(out.posterior, t0, config, out.data, config.save_name)
+    out.bma = _plot_bma_latent(
+        lambda p: out.model.latent_predict(p, out.t_grid, out.X, out.y, out.var),
+        samples, out.latent, out.t_grid, out.data, config,
+        f"{config.save_name}_bma" if config.save_name else "bma",
+        "hyperparameters marginalised")
 
 
 def report(config: cfg.RunConfig, out: CanonicalRun) -> None:
     """The canonical route's host work: the hyperparameter table and
-    ``hyperparams.csv``, and the plots under ``--out-dir``."""
+    ``hyperparams.csv``, and the plots under ``--out-dir``; with
+    ``--posterior-samples``, :func:`kinetics_posterior` between the
+    predictive plots and the parameter trace (the JAX route's order)."""
     from dis_project_tpu_torch.reporting import plotter, tables
 
     data, params = out.data, out.result.params
@@ -259,6 +434,8 @@ def report(config: cfg.RunConfig, out: CanonicalRun) -> None:
                     scatter_times=data.timepoints, **kw)
     plotter.plot_gene_predictions(out.x_grid, out.expression, data, **kw)
     plotter.plot_comparison(params, data, **kw)
+    if config.posterior_samples > 0:
+        kinetics_posterior(config, out)
     trace = out.result.param_trace
     if config.track_parameters and trace is not None:
         plotter.plot_param_trace({"basal": trace.basal, "sensitivity": trace.sensitivity,
@@ -607,18 +784,62 @@ def ss_engine(config: cfg.RunConfig) -> str:
 def dense_ss_report(config: cfg.RunConfig, out: DenseRun) -> None:
     """The state-space route's host work: the smoothed latent force against
     the generating force (``lf_dense_ss_lf.png``), where matplotlib is
-    installed."""
-    if not _have_matplotlib():
-        print("matplotlib is not installed: the smoothed latent-force plot is not drawn")
-        return
-    from dis_project_tpu_torch.models.base import Gaussian
-    from dis_project_tpu_torch.reporting import plotter
+    installed; then, with ``--posterior-samples``,
+    :func:`dense_ss_posterior`."""
+    if _have_matplotlib():
+        from dis_project_tpu_torch.models.base import Gaussian
+        from dis_project_tpu_torch.reporting import plotter
 
-    plotter.plot_lf(out.lf_grid[:, None], Gaussian(mean=out.lf_mean, cov=torch.diag(out.lf_var)),
-                    y_scatter=out.data.f_true, scatter_times=out.data.timepoints,
-                    title="Smoothed latent force (state-space engine)",
-                    save_name="dense_ss_lf", out_dir=config.out_dir)
-    print(f"Smoothed latent-force plot saved under {config.out_dir}/")
+        plotter.plot_lf(out.lf_grid[:, None],
+                        Gaussian(mean=out.lf_mean, cov=torch.diag(out.lf_var)),
+                        y_scatter=out.data.f_true, scatter_times=out.data.timepoints,
+                        title="Smoothed latent force (state-space engine)",
+                        save_name="dense_ss_lf", out_dir=config.out_dir)
+        print(f"Smoothed latent-force plot saved under {config.out_dir}/")
+    else:
+        print("matplotlib is not installed: the smoothed latent-force plot is not drawn")
+    if config.posterior_samples > 0:
+        dense_ss_posterior(config, out)
+
+
+def dense_ss_posterior(config: cfg.RunConfig, out: DenseRun) -> None:
+    """``--preset dense10k --mll-engine ss --posterior-samples``: full-Bayes
+    kinetics at dense scale through the O(T) likelihood
+    (``training.hmc.kinetics_posterior_ss``, 10 leapfrog steps, with
+    ``--force-kernel`` and ``--stationary-after``), the report capped at 10
+    genes, and the BMA band of the smoothed force (``lfm_predict_ss`` per
+    component, ``lf_dense_ss_bma.png``). Sets ``out.posterior`` and
+    ``out.bma``."""
+    from dis_project_tpu_torch.models.base import Gaussian
+    from dis_project_tpu_torch.ops import statespace as ss_ops
+    from dis_project_tpu_torch.training import hmc
+
+    G, T = config.synth_genes, config.synth_timepoints
+    dev, dtype = out.y.device, out.y.dtype
+    timepoints = torch.as_tensor(out.data.timepoints, dtype=dtype, device=dev)
+    nv = out.var.reshape(G, T).T + out.model.jitter
+    n_draws = config.posterior_samples
+    print(f"Sampling hyperparameter posterior at N={G * T} "
+          f"via the O(T) state-space likelihood: {n_draws} HMC "
+          f"draws ({n_draws} warmup)...")
+    t0 = time.perf_counter()
+    out.posterior = hmc.kinetics_posterior_ss(
+        out.result.params, timepoints, out.y, posterior_generator(config, dev),
+        jitter=out.model.jitter, num_warmup=n_draws, num_samples=n_draws,
+        num_chains=config.posterior_chains, force_kernel=config.force_kernel,
+        stationary_after=config.stationary_after)
+    samples = _finish_posterior(out.posterior, t0, config, out.data, "dense_ss",
+                                max_report_genes=10)
+
+    def predict(p):
+        fm, fv, _, _ = ss_ops.lfm_predict_ss(p, timepoints, out.y, out.lf_grid, noise_var=nv,
+                                             force_kernel=config.force_kernel)
+        return Gaussian(mean=fm, cov=torch.diag(fv))
+
+    out.bma = _plot_bma_latent(
+        predict, samples, Gaussian(mean=out.lf_mean, cov=torch.diag(out.lf_var)),
+        out.lf_grid[:, None], out.data, config, "dense_ss_bma",
+        "Smoothed latent force (BMA over the kinetics posterior)")
 
 
 @dataclasses.dataclass
@@ -632,6 +853,10 @@ class FamilyRun:
     data: Any  # data.dataset.P53Data
     t_grid: torch.Tensor
     wall_s: float  # the fit's wall seconds
+    # --posterior-samples: the HMC result (constrained draws) and the BMA
+    # band (the nlfm route's: the full-Bayes force band)
+    posterior: Any = None
+    bma: Any = None
 
 
 def _check_route_flags(config: cfg.RunConfig, route: str, rejected) -> None:
@@ -1180,7 +1405,40 @@ def run_delay(config: cfg.RunConfig) -> FamilyRun:
         print(f"Latent-force plot saved under {config.out_dir}/")
     else:
         print("matplotlib is not installed: the latent-force plot is not drawn")
-    return FamilyRun(result, latent, data, t_grid, wall)
+    out = FamilyRun(result, latent, data, t_grid, wall)
+    if config.posterior_samples > 0:
+        delay_posterior(config, out, model, X, y, var)
+    return out
+
+
+def delay_posterior(config: cfg.RunConfig, out: FamilyRun, model, X, y, var) -> None:
+    """``--model delaysimm --posterior-samples``: HMC over (kinetics,
+    delays) (``models.delaysimm.kinetics_posterior``: on the card K2 and
+    K2's backward at the warped rows every gradient), the kinetics report,
+    the posterior-delay table and the BMA band through the warped-input
+    ``latent_predict`` (``lf_<save-name or delay>_bma.png``). Sets
+    ``out.posterior`` and ``out.bma``."""
+    from dis_project_tpu_torch.models import delaysimm
+
+    data, n_draws = out.data, config.posterior_samples
+    print(f"Sampling (kinetics, delay) posterior: {n_draws} HMC draws "
+          f"({n_draws} warmup)...")
+    t0 = time.perf_counter()
+    out.posterior = delaysimm.kinetics_posterior(
+        model, out.result.params, X, y, posterior_generator(config, X.device),
+        num_warmup=n_draws, num_samples=n_draws, num_chains=config.posterior_chains)
+    pooled = _finish_posterior(out.posterior, t0, config, data, config.save_name or "delay")
+    print("\nPosterior delays (mean +/- std [5%, 95%]):")
+    dvals = _host(pooled.delay)
+    for g, name in enumerate(data.gene_names[: dvals.shape[1]]):
+        lo, hi = np.percentile(dvals[:, g], [5, 95])
+        print(f"  delay {name:<10} "
+              f"{dvals[:, g].mean():.4f} +/- {dvals[:, g].std():.4f} "
+              f"[{lo:.4f}, {hi:.4f}]")
+    out.bma = _plot_bma_latent(
+        lambda p: model.latent_predict(p, out.t_grid, X, y, var), pooled, out.latent,
+        out.t_grid, data, config, f"{config.save_name or 'delay'}_bma",
+        "delayed response, hyperparameters marginalised")
 
 
 def synthetic_delay_data(genes: int, timepoints: int, seed: int, dtype, device):
@@ -1254,11 +1512,46 @@ def run_dense_delay(config: cfg.RunConfig) -> DenseRun:
     mae_del = float(np.abs(del_fit - del_true).mean())
     print(f"Ground-truth recovery: corr(decay)={corr_d:.3f} corr(delay)={corr_del:.3f} "
           f"delay MAE={mae_del:.3f}")
+    post = None
+    if config.posterior_samples > 0:
+        post = dense_delay_posterior(config, p, tgrid, y, data, del_true)
     if config.metrics_path:
         write_dense_metrics(config.metrics_path, hist)
     model = delaysimm.ExactDelaySIMM(num_genes=G, jitter=config.exact_jitter)
     return DenseRun(res, model, data, X, y, var, step_seconds, final_loss=_final_loss(losses),
-                    ss_stats=ss_stats)
+                    ss_stats=ss_stats, posterior=post)
+
+
+def dense_delay_posterior(config: cfg.RunConfig, params, tgrid, y, data, del_true):
+    """``--preset dense10k --model delaysimm --mll-engine ss
+    --posterior-samples``: full-Bayes (kinetics, delays) through the O(T G)
+    warped-event likelihood (``training.hmc.delay_posterior_ss``, 10
+    leapfrog steps, ``--force-kernel``), the kinetics report capped at 10
+    genes and the posterior delays against the generating ones. Returns the
+    HMC result."""
+    from dis_project_tpu_torch.training import hmc
+
+    n_draws, N = config.posterior_samples, config.synth_genes * config.synth_timepoints
+    print(f"Sampling (kinetics, delay) posterior at N={N} "
+          f"via the O(T G) warped-event likelihood: {n_draws} HMC "
+          f"draws ({n_draws} warmup)...")
+    t0 = time.perf_counter()
+    post = hmc.delay_posterior_ss(
+        params, tgrid, y, posterior_generator(config, y.device), jitter=config.exact_jitter,
+        num_warmup=n_draws, num_samples=n_draws, num_chains=config.posterior_chains,
+        force_kernel=config.force_kernel)
+    pooled = _finish_posterior(post, t0, config, data, "dense_delay_ss", max_report_genes=10)
+    dvals = _host(pooled.delay)
+    n_rep = min(10, dvals.shape[1])
+    extra = (f" (reporting the first {n_rep} of {dvals.shape[1]} genes)"
+             if dvals.shape[1] > n_rep else "")
+    print(f"\nPosterior delays vs generating truth{extra}:")
+    for g_i in range(n_rep):
+        lo, hi = np.percentile(dvals[:, g_i], [5, 95])
+        print(f"  delay g{g_i:03d} {dvals[:, g_i].mean():.4f} "
+              f"+/- {dvals[:, g_i].std():.4f} [{lo:.4f}, {hi:.4f}] "
+              f"(true {del_true[g_i]:.4f})")
+    return post
 
 
 @dataclasses.dataclass
@@ -1280,8 +1573,8 @@ def run_nonlinear(config: cfg.RunConfig) -> NonlinearRun:
     present (``fit_checkpointed`` under ``--checkpoint-dir``), the metrics
     JSONL, the hyperparameter table and ``hyperparams.csv`` (in the working
     directory), then both Laplace posteriors from one Hessian; with
-    matplotlib, the parameter trace and the force and gene-curve plots.
-    ``--posterior-samples`` (HMC) is not yet ported."""
+    matplotlib, the parameter trace and the force and gene-curve plots;
+    with ``--posterior-samples``, :func:`nonlinear_posterior`."""
     from dis_project_tpu_torch.data.dataset import P53Data
     from dis_project_tpu_torch.models import nlfm
     from dis_project_tpu_torch.ops.precision import default_device, dtype_for
@@ -1354,7 +1647,64 @@ def run_nonlinear(config: cfg.RunConfig) -> NonlinearRun:
         print(f"Plots saved under {config.out_dir}/")
     else:
         print("matplotlib is not installed: the force and gene-curve plots are not drawn")
-    return NonlinearRun(result, lap, data, grid, wall, bands=bands, laplace_s=laplace_s)
+    out = NonlinearRun(result, lap, data, grid, wall, bands=bands, laplace_s=laplace_s)
+    if config.posterior_samples > 0:
+        nonlinear_posterior(config, out, model, t_obs, Y, V)
+    return out
+
+
+def nonlinear_posterior(config: cfg.RunConfig, out: NonlinearRun, model, t_obs, Y, V) -> None:
+    """``--model nlfm --posterior-samples``: joint HMC over (kinetics,
+    whitened force) (``models.nlfm.force_posterior_hmc``), the kinetics
+    report, and the full-Bayes force band: the moments of the draws' forces
+    f_s = L(l_s) w_s, beside the Laplace band (``lf_<save-name or
+    nlfm>_hmc.png``). Sets ``out.posterior`` and ``out.bma`` (the band, or
+    None when every draw's force is non-finite)."""
+    from dis_project_tpu_torch.models import nlfm
+    from dis_project_tpu_torch.models.base import Gaussian
+    from dis_project_tpu_torch.training import checkpoint as ckpt
+
+    n_draws = config.posterior_samples
+    print(f"Sampling (kinetics, force) posterior: {n_draws} HMC draws "
+          f"({n_draws} warmup)...")
+    t0 = time.perf_counter()
+    out.posterior = nlfm.force_posterior_hmc(
+        model, out.result.params, t_obs, Y, V, posterior_generator(config, t_obs.device),
+        num_warmup=n_draws, num_samples=n_draws, num_chains=config.posterior_chains)
+    name = config.save_name or "nlfm"
+    pooled = _finish_posterior(out.posterior, t0, config, out.data, name,
+                               kin_from=lambda s: s.kinetics)
+    # The state holds the force itself (whitened w), so the full-Bayes band
+    # is the empirical moment over f_s = L(l_s) w_s: kinetics, lengthscale
+    # and force uncertainty marginalised jointly.
+    leaves = ckpt.tree_leaves(pooled)
+    with torch.no_grad():
+        forces = _host(torch.stack([
+            model.force(ckpt.tree_unflatten(pooled, [a[i] for a in leaves]))
+            for i in range(leaves[0].shape[0])]))
+    forces = forces[np.isfinite(forces).all(axis=1)]
+    if forces.shape[0] == 0:
+        print("HMC force band: every draw's force values were non-finite "
+              "— skipping the full-Bayes force band")
+        return
+    fvar = forces.var(axis=0)
+    hmc_widen = float(np.mean(np.sqrt(fvar) / _host(out.latent.stddev())))
+    print(f"HMC force band ({forces.shape[0]} draws): mean stddev "
+          f"{hmc_widen:.2f}x the Laplace band")
+    dev = out.t_grid.device
+    out.bma = Gaussian(mean=torch.as_tensor(forces.mean(axis=0), device=dev),
+                       cov=torch.diag(torch.as_tensor(fvar, device=dev)))
+    if _have_matplotlib():
+        from dis_project_tpu_torch.reporting import plotter
+
+        identity = config.response == "identity"
+        plotter.plot_lf(out.t_grid[:, None], out.bma,
+                        y_scatter=out.data.f_observed if identity else None,
+                        scatter_times=out.data.timepoints if identity else None,
+                        title=f"nonlinear ({config.response}), full-Bayes force",
+                        save_name=f"{name}_hmc", out_dir=config.out_dir)
+    else:
+        print("matplotlib is not installed: the full-Bayes force band is not drawn")
 
 
 def synthetic_nlfm_data(genes: int, timepoints: int, seed: int, response: str, dtype, device):
@@ -1436,7 +1786,7 @@ PORTED_FLAGS = (
     "--synth-timepoints, --jitter, --num-iters, --learning-rate, --optimizer, "
     "--no-fix-params, --shared-kinetics, --steps-per-epoch, --track-parameters, "
     "--no-x64, --device, --out-dir, --save-name, --checkpoint-dir, --resume, "
-    "--metrics-path"
+    "--metrics-path, --posterior-samples, --posterior-chains"
 )
 
 
@@ -1485,7 +1835,7 @@ def check_ss_flags(config: cfg.RunConfig) -> None:
 
 def check_model_flags(config: cfg.RunConfig) -> None:
     """The JAX package's guards of the model families, engines and the
-    posterior flag, with its messages (dis_project_tpu/main.py:2095-2222),
+    posterior flags, with its messages (dis_project_tpu/main.py:2095-2226),
     for the families the port runs; then :func:`check_ss_flags`."""
     if config.model == "simm2" and config.preset in ("alfi-parity", "p53-replicates"):
         raise SystemExit(
@@ -1541,6 +1891,10 @@ def check_model_flags(config: cfg.RunConfig) -> None:
             "(no closed-form Gram exists for the nonlinear family; the "
             "extended Kalman engine is the dense-scale marginal route)"
         )
+    if config.posterior_chains < 1:
+        raise SystemExit("--posterior-chains must be >= 1")
+    if config.posterior_chains > 1 and not config.posterior_samples:
+        raise SystemExit("--posterior-chains requires --posterior-samples")
     check_ss_flags(config)
     if config.dp_shard and config.preset != "sparse100k":
         raise SystemExit(
@@ -1577,8 +1931,6 @@ def main(argv=None):
         raise SystemExit("--resume requires --checkpoint-dir")
     if config.ss_shard:
         raise SystemExit("--ss-shard (the temporally-sharded filter) is not yet ported")
-    if config.posterior_samples:
-        raise SystemExit("--posterior-samples (HMC) is not yet ported")
     if config.dp_shard:
         raise SystemExit("--dp-shard (data-parallel SVI) is not yet ported "
                          "(ROADMAP Queue 1 item 17)")

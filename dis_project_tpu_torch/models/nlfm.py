@@ -1,7 +1,6 @@
 r"""Nonlinear-response latent force model: MAP and Laplace inference.
 
-Port of ``dis_project_tpu/models/nlfm.py`` (not its HMC route,
-``force_posterior_hmc``). Lawrence, Sanguinetti & Rattray (2006) §5's
+Port of ``dis_project_tpu/models/nlfm.py``. Lawrence, Sanguinetti & Rattray (2006) §5's
 nonlinear response
 
 .. math:: \dot x_j(t) = B_j + S_j\,g(f(t)) - D_j x_j(t)
@@ -17,7 +16,9 @@ has no closed-form covariance, so:
 - inference is MAP over ``(kinetics, w)`` (:func:`fit`, the generic
   training loop), with a Laplace Gaussian over the force at the MAP point
   from one Q x Q Hessian (``torch.func.hessian``) and delta-method bands
-  over the gene curves (``torch.func.jacfwd``).
+  over the gene curves (``torch.func.jacfwd``);
+- :func:`force_posterior_hmc` samples (kinetics, w) jointly by HMC
+  (``training.hmc``) on the same log-joint.
 
 Every factorisation on the path fails to NaN rather than raising
 (``cholesky_ex``, ``inv_ex``): a raising call would read its status on the
@@ -239,3 +240,25 @@ def fit(model: NonlinearLFM, params: NLFMParams, t_obs, Y, var, num_iters: int =
     if full_result:
         return result
     return result.params, result.history
+
+
+def force_posterior_hmc(model: NonlinearLFM, params: NLFMParams, t_obs, Y, var, generator,
+                        num_warmup: int = 400, num_samples: int = 400, num_leapfrog: int = 24,
+                        num_chains: int = 1, mesh=None, draws=None, init_noise=None):
+    """Full-Bayes posterior over (kinetics, w): ``training.hmc`` on the
+    log-joint the MAP fit optimises, with a flat prior on the CONSTRAINED
+    kinetics through the bijector Jacobian of ``raw.kinetics`` (``w`` is
+    unconstrained). Seed the chain at the MAP point; samples come back
+    constrained. ``num_chains > 1`` returns (C, S)-leading samples for the
+    R-hat/ESS diagnostics; ``draws`` / ``init_noise`` take the random
+    numbers ready-made (``training.hmc.sample``)."""
+    from dis_project_tpu_torch.training import hmc
+
+    def logdensity(raw):
+        return model.log_joint(constrain(raw), t_obs, Y, var) + bij.constrain_log_det(
+            raw.kinetics, SIMM_BIJECTORS)
+
+    return hmc.sample_constrained(
+        logdensity, unconstrain(params), generator, num_chains, mesh, constrain,
+        dict(num_warmup=num_warmup, num_samples=num_samples, num_leapfrog=num_leapfrog),
+        draws, init_noise)

@@ -175,3 +175,45 @@ def gram_xx_blocked_fast(timepoints, decay, sens, lengthscale):
         - e_row.T[:, :, None, None] * r_row.T[None, None, :, :]
     )
     return K4.reshape(G * T, G * T)
+
+
+class _GramHybrid(torch.autograd.Function):
+    """Table forward, row-algebra backward (see :func:`gram_xx_blocked_hybrid`)."""
+
+    @staticmethod
+    def forward(ctx, timepoints, decay, sens, lengthscale):
+        ctx.save_for_backward(timepoints, decay, sens, lengthscale)
+        return gram_xx_blocked_fast(timepoints, decay, sens, lengthscale)
+
+    @staticmethod
+    def backward(ctx, kbar):
+        inputs = [a.detach().requires_grad_(need)
+                  for a, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [a for a in inputs if a.requires_grad]
+        if not wanted:
+            return (None,) * 4
+        with torch.enable_grad():
+            out = lfk.k_xx_block(inputs[0], inputs[0], *inputs[1:])
+            grads = iter(torch.autograd.grad(out, wanted, kbar, allow_unused=True))
+        return tuple(next(grads) if a.requires_grad else None for a in inputs)
+
+
+def gram_xx_blocked_hybrid(timepoints, decay, sens, lengthscale):
+    """Table-Gram forward, row-algebra backward: the values of
+    :func:`gram_xx_blocked_fast` bit for bit; the gradient is the VJP of
+    the row closed form ``lfm_kernels.k_xx_block`` (elementwise algebra,
+    no scatter into the delta tables). The JAX package measured it slower
+    than differentiating the table on its chip and keeps it as library
+    API; so does the port. The ``timepoints`` gradient follows the row
+    algebra (the kernel's true derivative)."""
+    return _GramHybrid.apply(timepoints, decay, sens, lengthscale)
+
+
+def gram_xx_blocked(timepoints, decay, sens, lengthscale, replicates: int = 1):
+    """Training-path Gram when every row is a gene-expression row on one
+    shared grid: the (G*T, G*T) block ``k_xx_block``, tiled ``replicates``
+    x ``replicates`` (k_xx does not depend on the replicate)."""
+    block = lfk.k_xx_block(timepoints, timepoints, decay, sens, lengthscale)
+    if replicates == 1:
+        return block
+    return block.repeat(replicates, replicates)

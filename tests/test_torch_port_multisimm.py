@@ -316,13 +316,20 @@ def test_cli_refuses_family_combinations_with_jax_messages(argv):
     assert str(got.value) == str(ref.value) and str(ref.value)
 
 
-def test_cli_refuses_the_dense_delay_posterior_as_not_yet_ported():
-    """The JAX package samples the dense delay route's posterior (HMC); the
-    port names it as not yet ported (the p53 routes' cases are in
-    ``tests/test_torch_port_simm2_routes.py``)."""
-    with pytest.raises(SystemExit, match=r"--posterior-samples \(HMC\) is not yet ported"):
-        tmain.main(["--preset", "dense10k", "--model", "delaysimm", "--mll-engine", "ss",
-                    "--posterior-samples", "4", "--device", "cpu"])
+def test_cli_dense_delay_posterior_reaches_the_sampler(tmp_path, monkeypatch):
+    """``--preset dense10k --model delaysimm --mll-engine ss
+    --posterior-samples 4`` calls ``delay_posterior_ss`` with JAX's
+    arguments (4 warmup, 4 draws, 10 leapfrog steps, one chain, --seed + 7;
+    the p53 routes' cases are in ``tests/test_torch_port_simm2_routes.py``)."""
+    from test_torch_port_hmc_routes import sampler_call
+
+    monkeypatch.chdir(tmp_path)
+    seen = sampler_call(monkeypatch, ["--preset", "dense10k", "--model", "delaysimm",
+                                      "--mll-engine", "ss", "--posterior-samples", "4",
+                                      "--synth-genes", "3", "--synth-timepoints", "9",
+                                      "--num-iters", "1"])
+    assert seen["num_warmup"] == seen["num_samples"] == 4
+    assert (seen["num_leapfrog"], seen["num_chains"], seen["seed"]) == (10, 1, 7)
 
 
 @pytest.mark.parametrize("model", ["multisimm", "delaysimm"])

@@ -359,12 +359,25 @@ def test_flag_parsing_matches_jax(argv):
     # The second-order sparse100k route is ported; its data-parallel SVI is not.
     pytest.param(["--model", "simm2", "--preset", "sparse100k", "--dp-shard"],
                  id="--model simm2"),
-    ["--preset", "p53-replicates", "--ensemble"], ["--posterior-samples", "5"],
+    ["--preset", "p53-replicates", "--ensemble"],
     ["--platform", "cpu"], ["--mesh-shape", "4,2"],
 ], ids=lambda a: " ".join(a))
 def test_cli_refuses_flags_and_presets_not_ported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         tmain.main(argv + ["--device", "cpu"])
+
+
+def test_cli_posterior_samples_reaches_the_sampler(tmp_path, monkeypatch):
+    """``--posterior-samples`` is ported: it passes the guards, and the
+    canonical route calls the HMC sampler as JAX's does (n warmup and n
+    draws, one chain, 24 leapfrog steps, the generator seeded with --seed +
+    7)."""
+    from test_torch_port_hmc_routes import sampler_call
+
+    monkeypatch.chdir(tmp_path)
+    seen = sampler_call(monkeypatch, ["--posterior-samples", "5", "--num-iters", "2"])
+    assert seen["num_warmup"] == seen["num_samples"] == 5
+    assert (seen["num_leapfrog"], seen["num_chains"], seen["seed"]) == (24, 1, 7)
 
 
 @pytest.mark.parametrize("argv, msg", [

@@ -303,18 +303,31 @@ def test_cli_refuses_simm2_combinations_with_jax_messages(argv):
 NOT_YET_PORTED = {
     "multisimm": (["--preset", "sparse100k", "--dp-shard"],
                   r"--dp-shard \(data-parallel SVI\) is not yet ported"),
-    "nlfm": (["--posterior-samples", "4"], r"--posterior-samples \(HMC\) is not yet ported"),
-    "delaysimm": (["--posterior-samples", "4"], r"--posterior-samples \(HMC\) is not yet ported"),
 }
 
 
-@pytest.mark.parametrize("model", ["multisimm", "nlfm", "delaysimm"])
+@pytest.mark.parametrize("model", ["multisimm"])
 def test_cli_refuses_the_families_not_yet_ported(model):
-    """Of the multi-force, nonlinear and delay families, the sparse route's
-    data-parallel SVI and the HMC flag are not ported."""
+    """Of the multi-force family, the sparse route's data-parallel SVI is
+    not ported."""
     extra, msg = NOT_YET_PORTED[model]
     with pytest.raises(SystemExit, match=msg):
         tmain.main(["--model", model, *extra, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("model", ["nlfm", "delaysimm"])
+def test_cli_family_posterior_reaches_the_sampler(model, tmp_path, monkeypatch):
+    """``--posterior-samples 4`` on the nonlinear and delay families' p53
+    routes calls their posterior with JAX's arguments (4 warmup, 4 draws,
+    24 leapfrog steps, one chain, --seed + 7)."""
+    from test_torch_port_hmc_routes import sampler_call
+
+    monkeypatch.chdir(tmp_path)
+    extra = ["--num-quad", "25"] if model == "nlfm" else []
+    seen = sampler_call(monkeypatch, ["--model", model, "--posterior-samples", "4",
+                                      "--num-iters", "2", *extra])
+    assert seen["num_warmup"] == seen["num_samples"] == 4
+    assert (seen["num_leapfrog"], seen["num_chains"], seen["seed"]) == (24, 1, 7)
 
 
 def test_cli_runs_simm2_on_the_cpu(tmp_path, capsys):

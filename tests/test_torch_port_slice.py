@@ -484,9 +484,22 @@ def test_cli_dense_route_on_cpu():
     pytest.param(["--model", "simm2", "--preset", "sparse100k", "--dp-shard"],
                  id="--model simm2"),
     ["--preset", "dense10k", "--mll-engine", "dist"],
-    ["--posterior-samples", "5"], ["--preset", "sparse100k", "--dp-shard"],
+    ["--preset", "sparse100k", "--dp-shard"],
     ["--preset", "p53-replicates", "--ensemble"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         tmain.main(argv + ["--device", "cpu"])
+
+
+def test_cli_replicates_posterior_reaches_the_sampler(tmp_path, monkeypatch):
+    """``--preset p53-replicates --posterior-samples 5 --posterior-chains
+    2``: the route samples all three replicates' kinetics (N = 105) on two
+    chains, with JAX's arguments (24 leapfrog steps, --seed + 7)."""
+    from test_torch_port_hmc_routes import sampler_call
+
+    monkeypatch.chdir(tmp_path)
+    seen = sampler_call(monkeypatch, ["--preset", "p53-replicates", "--posterior-samples", "5",
+                                      "--posterior-chains", "2", "--num-iters", "2"])
+    assert seen["num_warmup"] == seen["num_samples"] == 5
+    assert (seen["num_leapfrog"], seen["num_chains"], seen["seed"]) == (24, 2, 7)

@@ -572,8 +572,21 @@ def test_cli_ss_guards_with_jax_messages(argv, msg):
 
 @pytest.mark.parametrize("argv", [
     ["--preset", "dense10k", "--mll-engine", "ss", "--ss-shard"],
-    ["--preset", "dense10k", "--mll-engine", "ss", "--posterior-samples", "10"],
 ])
 def test_cli_refuses_ss_options_not_ported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         tmain.main(argv + ["--device", "cpu"])
+
+
+def test_cli_dense_ss_posterior_reaches_the_sampler(tmp_path, monkeypatch):
+    """``--preset dense10k --mll-engine ss --posterior-samples 10``: the
+    dense-scale posterior (``kinetics_posterior_ss``) with JAX's arguments
+    (10 warmup, 10 draws, 10 leapfrog steps, --seed + 7)."""
+    from test_torch_port_hmc_routes import sampler_call
+
+    monkeypatch.chdir(tmp_path)
+    seen = sampler_call(monkeypatch, ["--preset", "dense10k", "--mll-engine", "ss",
+                                      "--posterior-samples", "10", "--synth-genes", "3",
+                                      "--synth-timepoints", "9", "--num-iters", "1"])
+    assert seen["num_warmup"] == seen["num_samples"] == 10
+    assert (seen["num_leapfrog"], seen["num_chains"], seen["seed"]) == (10, 1, 7)
