@@ -24,7 +24,12 @@ Around them, the JAX package's matmul-level algorithms, one to one:
 :func:`tri_inv_from_diag`, :func:`blocked_cholesky` (left-looking, the f64
 engine and the ``diag=`` surface), :func:`blocked_cholesky_t` (transposed
 two-level form, the f32 engine), :func:`blocked_chol_solve`,
-:func:`inv_from_factor` and :func:`inv_from_factor_tril`. Every product
+:func:`inv_from_factor` and :func:`inv_from_factor_tril`. The MLL
+backward's float64 Σ⁻¹ from N = 2048 has no JAX counterpart:
+:func:`sigma_inv_panels`, one block-column recurrence that writes the dense
+symmetric Σ⁻¹ straight from L into one N x N buffer, at 2N³/3 flops in
+large GEMMs (the JAX package's f64 route, :func:`tri_inv` and the recursive
+product, does ~N³ and stays here for its parity tests). Every product
 outside a kernel is ``torch.matmul`` with TF32 off
 (``ops.precision.pin_full_fp32``) — the port's form of the JAX package's
 f32-faithful ``MATMUL_PRECISION``: single-pass low-precision products NaN
@@ -32,9 +37,11 @@ the factorisation of a real SIMM Gram.
 
 Dispatch: on a CUDA tensor each kernel wrapper launches its kernel or
 raises; on a CPU tensor it takes the plain version. Each launch adds one to
-``LAUNCHES``. Non-PD input never raises: the factor comes back NaN (the
-kernels write NaN for a non-positive pivot; the plain versions NaN-fill
-``cholesky_ex``), so the trainer's finite guard sees a NaN loss.
+``LAUNCHES``; each call of :func:`sigma_inv_panels`, which runs the same
+code on both, adds one to ``ROUTES``. Non-PD input never raises: the
+factor comes back NaN (the kernels write NaN for a non-positive pivot; the
+plain versions NaN-fill ``cholesky_ex``), so the trainer's finite guard
+sees a NaN loss.
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ from dis_project_tpu_torch.ops import cuda_build
 from dis_project_tpu_torch.ops.cuda_gram import plain_vjp
 
 LAUNCHES = {"syrk_ltl_tril": 0, "chol_inv_unblocked": 0, "chol_unblocked": 0}
+# Calls of the plain-PyTorch routes that run on the card's main path.
+ROUTES = {"sigma_inv_panels": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SYRK_SIGNATURES = {"syrk_ltl_tril_f32": [_P, _I, _P, _P]}
@@ -67,6 +76,8 @@ _PALLAS_CHOL_MAX_B = 512
 # float32 factors above this size take K3 and the panel inverses (the JAX
 # package's inv_from_factor threshold: below it the plain product is cheap).
 SYRK_MIN_N = 2048
+# Block-column width of sigma_inv_panels.
+SIGMA_INV_BLOCK = 512
 # K4's phase stamps (csrc/chol_block.cuh, K4_STAMPS): %globaltimer at entry,
 # block loaded, each 32-wide step of the first 128 block, the inverse
 # assembled, L and L⁻¹ stored.
@@ -762,3 +773,48 @@ def inv_from_factor_tril(L, *, block: int = DEFAULT_BLOCK, diag_inv=None,
         Li = Li.contiguous()  # K3 reads rows; a solve leaves columns
         return syrk_ltl_tril(Li) if kernels else syrk_ltl_tril_plain(Li)
     return torch.tril(_tril_t_tril(Li))
+
+
+def sigma_inv_panels(L):
+    """Σ⁻¹ = L⁻ᵀ L⁻¹, dense and exactly symmetric, from the lower factor
+    ``L``, written block column by block column into one N x N buffer (the
+    float64 route of the MLL backward).
+
+    From Z L = L⁻ᵀ (upper triangular), block columns J = [j0, j1) of width
+    ``SIGMA_INV_BLOCK`` from the last to the first (the last one ragged),
+    with P = L[j1:, J] and Z[j1:, j1:] already in place:
+
+        Z[J, j1:] = -(P L_JJ⁻¹)ᵀ Z[j1:, j1:]              # one GEMM, 2 m² b flops
+        Z[j1:, J] = Z[J, j1:]ᵀ                            # mirror
+        Z[J, J]   = L_JJ⁻ᵀ L_JJ⁻¹ - Z[J, j1:] (P L_JJ⁻¹)  # then symmetrised
+
+    m = N - j1. The large GEMMs sum to 2N³/3 flops, the count of a
+    triangular inverse plus its product (trtri + lauum), with ~2N²b more
+    in the b-wide products; the diagonal blocks' inverses come from one
+    batched solve. Every product reads views of ``L`` and of the buffer,
+    which is the only N x N allocation. Each call adds one to
+    ``ROUTES["sigma_inv_panels"]``.
+    """
+    n, b = L.shape[0], SIGMA_INV_BLOCK
+    nf, tail = divmod(n, b)
+    eye = torch.eye(min(b, n), dtype=L.dtype, device=L.device)
+    inv = []
+    if nf:
+        inv = list(torch.linalg.solve_triangular(
+            _diag_blocks(L, b, nf), eye.expand(nf, b, b), upper=False).unbind(0))
+    if tail:
+        inv.append(torch.linalg.solve_triangular(L[n - tail:, n - tail:], eye[:tail, :tail],
+                                                 upper=False))
+    Z = torch.empty_like(L, memory_format=torch.contiguous_format)
+    for k in reversed(range(len(inv))):
+        j0, j1 = k * b, min(k * b + b, n)
+        W = inv[k].T @ inv[k]
+        if j1 < n:
+            PL = L[j1:, j0:j1] @ inv[k]
+            row = Z[j0:j1, j1:]
+            row.addmm_(PL.T, Z[j1:, j1:], beta=0.0, alpha=-1.0)
+            Z[j1:, j0:j1] = row.T
+            W.addmm_(row, PL, alpha=-1.0)
+        Z[j0:j1, j0:j1] = (W + W.T) * 0.5
+    ROUTES["sigma_inv_panels"] += 1
+    return Z

@@ -25,9 +25,15 @@ kernel hyperparameters through the Gram build only.
 
 Cotangent forms (both kept, as in the JAX package):
 
-- ``'xla'`` below ``_TRI_INV_MIN_N``: the dense symmetric form above.
-- ``'blocked'``, or N >= ``_TRI_INV_MIN_N``: a symmetric-equivalent form
-  built from ``T = tril(Σ⁻¹)`` only — ``dΣ = g/2 ααᵀ - g (T - diag(T)/2)``,
+- ``'xla'`` below ``_TRI_INV_MIN_N``: the dense symmetric form above, Σ⁻¹
+  from ``chol_solve(L, I)``.
+- ``'xla'`` in float64 from ``_TRI_INV_MIN_N``: the same dense symmetric
+  form, Σ⁻¹ from ``cuda_cholesky.sigma_inv_panels`` (one block-column
+  recurrence, 2N³/3 flops in large GEMMs, in one N x N buffer), with the
+  cotangent assembled in that buffer. The JAX package emits the tril form
+  below at these sizes; the two agree in their symmetric parts.
+- ``'blocked'``, or float32 from ``_TRI_INV_MIN_N``: a symmetric-equivalent
+  form built from ``T = tril(Σ⁻¹)`` only — ``dΣ = g/2 ααᵀ - g (T - diag(T)/2)``,
   whose symmetrisation is the textbook cotangent (Σ is a symmetric
   function of everything upstream, so only sym(dΣ) contributes). For
   float32 factors above N=2048 ``T`` comes through the SYRK kernel K3.
@@ -49,8 +55,9 @@ LOG_2PI = math.log(2.0 * math.pi)
 
 CHOL_IMPLS = ("xla", "blocked")
 
-# Above this size Σ⁻¹ comes from the blocked triangular inverse + SYRK
-# instead of a dense solve against the identity.
+# Above this size Σ⁻¹ comes from a blocked route (the panel recurrence in
+# float64, the triangular inverse + SYRK in float32) instead of a dense
+# solve against the identity.
 _TRI_INV_MIN_N = 2048
 
 
@@ -97,8 +104,13 @@ def chol_solve(L, b):
         return _solve_tri(L.T, z, upper=True)
 
 
+def _use_panel_inv(L, impl: str) -> bool:
+    """The float64 ``'xla'`` Σ⁻¹ route from ``_TRI_INV_MIN_N`` (see module doc)."""
+    return impl == "xla" and L.dtype == torch.float64 and L.shape[0] >= _TRI_INV_MIN_N
+
+
 def _use_blocked_inv(L, impl: str) -> bool:
-    """The Σ⁻¹ route of the backward pass (see module doc)."""
+    """The tril Σ⁻¹ route of the backward pass (see module doc)."""
     return impl == "blocked" or L.shape[0] >= _TRI_INV_MIN_N
 
 
@@ -139,7 +151,12 @@ class _MvnLogpdfCentered(torch.autograd.Function):
             L = factor.mT if ctx.transposed else factor  # transpose back once
             n = L.shape[0]
             d_y = -g * alpha
-            if _use_blocked_inv(L, ctx.impl):
+            if _use_panel_inv(L, ctx.impl):
+                with annotate("lfm.mll.sigma_inv"):
+                    d_sigma = cuda_cholesky.sigma_inv_panels(L)
+                # (0.5 g)(ααᵀ - Σ⁻¹) in Σ⁻¹'s buffer: no N x N temporary.
+                d_sigma.addr_(alpha, alpha, beta=-1.0).mul_(0.5 * g)
+            elif _use_blocked_inv(L, ctx.impl):
                 with annotate("lfm.mll.sigma_inv"):
                     t = cuda_cholesky.inv_from_factor_tril(L, diag_inv=dinvs,
                                                            kernels=ctx.kernels)

@@ -224,6 +224,25 @@ def test_inv_from_factor_tril_f32_panel_branch():
         _close(cc.inv_from_factor_tril(L, **kw).double(), truth, 1e-3)
 
 
+@pytest.fixture(scope="module")
+def sigma_2048():
+    """One real SIMM Σ at N = 2048, built once: the Σ⁻¹-route tests take
+    its leading principal blocks, each SPD."""
+    return _real_sigma(2048, seed=16)
+
+
+@pytest.mark.parametrize("n", [300, 2 * cc.SIGMA_INV_BLOCK, 2 * cc.SIGMA_INV_BLOCK + 37])
+def test_sigma_inv_panels_matches_jax(sigma_2048, n):
+    """The float64 Σ⁻¹ recurrence below one block, at an exact multiple of
+    the block and with a ragged last block, on real SIMM factors: the JAX
+    package's inv_from_factor at 1e-10, and exactly symmetric."""
+    L = np.linalg.cholesky(sigma_2048[:n, :n])
+    ref = jax.jit(pc.inv_from_factor)(jnp.asarray(L))
+    got = cc.sigma_inv_panels(_t(L))
+    _close(got, ref, 1e-10)
+    assert torch.equal(got, got.T)
+
+
 # ---------------------------------------------------------------------------
 # The blocked MLL engine.
 # ---------------------------------------------------------------------------
@@ -248,6 +267,30 @@ def test_mvn_logpdf_blocked_matches_jax():
     _close(gm, ref_g[1], 1e-10)
     sym = np.asarray(ref_g[2])
     _close(0.5 * (gs + gs.T), 0.5 * (sym + sym.T), 1e-10)
+
+
+@pytest.mark.parametrize("impl, dtype, n, engages", [
+    ("xla", torch.float64, tmll._TRI_INV_MIN_N, True),
+    ("xla", torch.float32, tmll._TRI_INV_MIN_N, False),
+    ("xla", torch.float64, tmll._TRI_INV_MIN_N - 1, False),
+    ("blocked", torch.float64, tmll._TRI_INV_MIN_N, False),
+])
+def test_mvn_logpdf_panel_route_engages_only_for_f64_xla_from_2048(sigma_2048, impl, dtype,
+                                                                   n, engages):
+    """The backward takes sigma_inv_panels for float64 'xla' from N = 2048
+    and nowhere else (the route counter); there the Σ cotangent is the
+    dense symmetric form, the symmetric part of JAX's tril form at 1e-10."""
+    A = sigma_2048[:n, :n]
+    y = np.random.default_rng(16).standard_normal(n)
+    S = _t(A).to(dtype).requires_grad_(True)
+    before = cc.ROUTES["sigma_inv_panels"]
+    val = tmll.mvn_logpdf(_t(y).to(dtype), torch.zeros(n, dtype=dtype), S, impl=impl)
+    (gs,) = torch.autograd.grad(val, S)
+    assert cc.ROUTES["sigma_inv_panels"] - before == int(engages)
+    if engages:
+        ref = np.asarray(jax.jit(jax.grad(jmll.mvn_logpdf, argnums=2))(
+            jnp.asarray(y), jnp.zeros(n), jnp.asarray(A)))
+        _close(gs, 0.5 * (ref + ref.T), 1e-10)
 
 
 def test_mvn_logpdf_blocked_f32_matches_xla_f32():

@@ -230,10 +230,12 @@ def test_k3_backward_matches_autograd():
 
 @pytest.mark.parametrize("n", [64, 2048])
 def test_mvn_logpdf_value_and_cotangents_match_jax(n):
-    """n=64 takes the dense cotangent, n=2048 the tril symmetric-equivalent
-    form (both packages switch at 2048). f64: value 1e-10 relative, each
-    cotangent 1e-8 of its largest entry (Sigma^{-1} of a cond-1e3 matrix
-    through two different triangular-inverse routes)."""
+    """n=64: both packages take the dense cotangent. n=2048: the port's
+    float64 route (the panel recurrence) still emits the dense symmetric
+    cotangent, JAX its tril symmetric-equivalent form, so the port's Σ
+    cotangent is held to the symmetric part of JAX's. f64: value 1e-10
+    relative, each cotangent 1e-8 of its largest entry (Sigma^{-1} of a
+    cond-1e3 matrix through two different routes)."""
     L = _real_factor(n)
     sigma = L @ L.T
     rng = np.random.default_rng(5)
@@ -244,7 +246,8 @@ def test_mvn_logpdf_value_and_cotangents_match_jax(n):
     val = tmll.mvn_logpdf(yt, mt, St)
     got_g = torch.autograd.grad(val, (yt, mt, St))
     assert float(val.detach()) == pytest.approx(float(ref_v), rel=1e-10)
-    for g, r in zip(got_g, ref_g):
+    sym = np.asarray(ref_g[2])
+    for g, r in zip(got_g, (ref_g[0], ref_g[1], 0.5 * (sym + sym.T))):
         r = np.asarray(r)
         assert np.abs(g.numpy() - r).max() <= 1e-8 * np.abs(r).max()
 
