@@ -4,17 +4,19 @@
         [--control-seeds 11,12,13] [--fault-seeds 11,12,13] [--seconds 3]
 
 For each seed, one JSON line a reading, each against the float64
-reference: ``program``, a sound run of the timed path (set-up through the
-fit's own call; for a prediction mix a window of ``--seconds`` at the
+reference, as the cell's traffic kind takes them (``traffic/<kind>.py``'s
+``readings``): ``program``, a sound run of the timed path (set-up through
+the fit's own call; for a prediction mix a window of ``--seconds`` at the
 cell's own load, the checked requests drawn as a run draws them); on the
 control seeds ``control``, the reference computed in float32 with TF32
 products put in the program's place; on the fault seeds each fault of
-``lfmbench.faults`` planted in the program. The benchmark's own runs do
-not run this.
+``lfmbench.faults`` planted in the program, at the sites of the cell's
+family. The benchmark's own runs do not run this.
 """
 
 import argparse
 import gc
+import importlib
 import json
 import os
 import sys
@@ -29,14 +31,17 @@ def _seeds(text):
     return [int(s) for s in text.split(",") if s]
 
 
-def readings(cell, seed, device, control=False, fault_kinds=(), seconds=3.0):
-    """The readings of one seed: a list of ``{"seed", "reading", numbers}``."""
-    import importlib
+def _family(cell):
+    return importlib.import_module(f"lfmbench.families.{cell.cfg['family']}")
 
+
+def readings(cell, seed, device, control=False, fault_kinds=(), seconds=3.0):
+    """The readings of one seed: a list of ``{"seed", "reading", numbers}``,
+    as the cell's traffic kind (``traffic/<kind>.py``'s ``readings``) reads
+    them."""
     import torch
 
     cfg, mix = cell.cfg, cell.mix
-    family = importlib.import_module(f"lfmbench.families.{cfg['family']}")
     ref_family = importlib.import_module(f"lfmbench.reference.{cfg['family']}")
     kind = importlib.import_module(f"lfmbench.traffic.{mix['kind']}")
     on_card = torch.device(device).type == "cuda"
@@ -50,63 +55,10 @@ def readings(cell, seed, device, control=False, fault_kinds=(), seconds=3.0):
 
     def emit(name, numbers):
         out.append(dict({"seed": seed, "reading": name}, **numbers))
+        return out[-1]
 
-    if mix["kind"] == "fit":
-        ref = kind.reference_steps(ref_family, cfg, mix, inp)
-        def leaves(first):
-            return {"grad": kind.leaf_gaps(first["grad"], ref["grad"], ref["grad"]),
-                    "change": kind.leaf_gaps(first["change"], ref["change"], ref["grad"]),
-                    "norms": {part: {k: float(v.double().norm()) for k, v in first[part].items()}
-                              for part in ("grad", "change")},
-                    "losses": first["losses"]}
-
-        first = kind.setup(family, cfg, mix, inp)["first"]
-        emit("program", kind.compare(first, ref))
-        out[-1]["leaves"] = leaves(first)
-        out[-1]["reference"] = {"norms": {part: {k: float(v.double().norm()) for k, v in
-                                                 ref[part].items()} for part in ("grad", "change")},
-                                "losses": ref["losses"]}
-        if control:
-            ctrl = kind.reference_steps(ref_family, cfg, mix, inp, precise=False)
-            emit("control", kind.compare(ctrl, ref))
-            out[-1]["leaves"] = leaves(ctrl)
-        for f in fault_kinds:
-            with faults.plant(f):
-                emit(f, kind.compare(kind.setup(family, cfg, mix, inp)["first"], ref))
-    else:
-        def run():
-            state = kind.setup(family, cfg, mix, inp)
-            kind.window(state, seconds, time.perf_counter, sync)
-            return state
-
-        refs = {}
-
-        def ref(k, precise=True):
-            if precise and k in refs:
-                return refs[k]
-            a = kind.reference_answer(ref_family, cfg, inp, k % mix["draws"], precise)
-            if precise:
-                refs[k] = a
-            return a
-
-        def worst(answers, picks):
-            gaps = [kind.compare_one(answers[k], ref(k)) for k in picks]
-            z = [float(((answers[k][0].double() - ref(k)[0]).abs() / ref(k)[1].sqrt()).max())
-                 for k in picks]
-            rv = [float(((answers[k][1].double() - ref(k)[1]).abs() / ref(k)[1]).max())
-                  for k in picks]
-            return {"mean": max(g[0] for g in gaps), "var": max(g[1] for g in gaps),
-                    "mean_z": max(z), "var_rel": max(rv)}
-
-        state = run()
-        picks = kind.sample(state, mix, seed)
-        emit("program", worst(state["answers"], picks))
-        if control:
-            emit("control", worst({k: ref(k, precise=False) for k in picks}, picks))
-        for f in fault_kinds:
-            with faults.plant(f):
-                state = run()
-            emit(f, worst(state["answers"], kind.sample(state, mix, seed)))
+    kind.readings(emit, _family(cell), ref_family, cfg, mix, inp, seed, control, fault_kinds,
+                  seconds, sync)
     del inp
     gc.collect()
     if on_card:
@@ -128,7 +80,7 @@ def main(argv):
     cell = harness.load_cell(args.workload)
     for seed in args.seeds:
         t0 = time.perf_counter()
-        kinds = faults.KINDS if seed in args.fault_seeds else ()
+        kinds = faults.kinds(_family(cell)) if seed in args.fault_seeds else ()
         for row in readings(cell, seed, "cuda", seed in args.control_seeds, kinds,
                             args.seconds):
             print(json.dumps(dict(row, s=round(time.perf_counter() - t0, 2))), flush=True)

@@ -11,8 +11,14 @@ cuSOLVER's factor and the MLL's custom backward. A prediction is
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.profiler import record_function
+
+from lfmbench import faults
+
+FAULTS = {kind: functools.partial(faults.dense, kind) for kind in faults.KINDS}
 
 
 def _simm():

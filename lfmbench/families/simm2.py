@@ -9,7 +9,13 @@ configuration's dtype.
 
 from __future__ import annotations
 
+import functools
+
 from torch.profiler import record_function
+
+from lfmbench import faults
+
+FAULTS = {kind: functools.partial(faults.dense, kind) for kind in faults.KINDS}
 
 
 def _simm2():

@@ -1,6 +1,11 @@
 """Faults planted under the timed path, to show that the comparison sees them.
 
-Each is a context manager that patches the program while it is open:
+Each is a context manager that patches the program while it is open. Every
+program family module (``families/<family>.py``) names the sites on its own
+path in ``FAULTS``, a dict from a fault kind to a function of no arguments
+that returns the context manager (``patched`` helps). The dense families
+(``simm``, ``simm2``) name ``dense``, the kinds below at the dense routes'
+sites:
 
 - ``unchanged``: an optimizer step returns the parameters it was given
   (``training.generic.apply_updates``); a prediction returns the answer to
@@ -23,7 +28,8 @@ KINDS = ("unchanged", "half", "altered")
 
 
 @contextlib.contextmanager
-def _patched(obj, name, value):
+def patched(obj, name, value):
+    """``obj.name`` set to ``value`` while the context is open."""
     old = getattr(obj, name)
     setattr(obj, name, value)
     try:
@@ -32,8 +38,19 @@ def _patched(obj, name, value):
         setattr(obj, name, old)
 
 
-def plant(kind: str):
-    """The context manager of fault ``kind``."""
+def kinds(family) -> tuple:
+    """The fault kinds that a cell of the family module ``family`` can have."""
+    return tuple(family.FAULTS)
+
+
+def plant(kind: str, family):
+    """The context manager of fault ``kind``, at the sites that the family
+    module ``family`` names."""
+    return family.FAULTS[kind]()
+
+
+def dense(kind: str):
+    """The context manager of fault ``kind`` at the dense routes' sites."""
     from dis_project_tpu_torch.models import simm
     from dis_project_tpu_torch.ops import mll
     from dis_project_tpu_torch.training import generic
@@ -47,8 +64,8 @@ def plant(kind: str):
         def stale(self, params, test_rows, x, y, variances):
             return first.setdefault("answer", predict(self, params, test_rows, x, y, variances))
 
-        stack.enter_context(_patched(generic, "apply_updates", lambda params, updates: params))
-        stack.enter_context(_patched(simm.ExactSIMM, "multi_gene_predict", stale))
+        stack.enter_context(patched(generic, "apply_updates", lambda params, updates: params))
+        stack.enter_context(patched(simm.ExactSIMM, "multi_gene_predict", stale))
     elif kind == "half":
         def half_logpdf(y, mean, sigma, impl="xla", kernels=True):
             h = y.shape[0] // 2
@@ -59,8 +76,8 @@ def plant(kind: str):
             return predict(self, params, test_rows, x[:h], y.reshape(-1)[:h],
                            variances.reshape(-1)[:h])
 
-        stack.enter_context(_patched(mll, "mvn_logpdf", half_logpdf))
-        stack.enter_context(_patched(simm.ExactSIMM, "multi_gene_predict", half_predict))
+        stack.enter_context(patched(mll, "mvn_logpdf", half_logpdf))
+        stack.enter_context(patched(simm.ExactSIMM, "multi_gene_predict", half_predict))
     elif kind == "altered":
         def altered_logpdf(*args, **kwargs):
             return logpdf(*args, **kwargs) * (1.0 + 1e-3)
@@ -71,8 +88,8 @@ def plant(kind: str):
             mean[0] += 1e-2 * mean.abs().max()
             return post._replace(mean=mean)
 
-        stack.enter_context(_patched(mll, "mvn_logpdf", altered_logpdf))
-        stack.enter_context(_patched(simm.ExactSIMM, "multi_gene_predict", altered_predict))
+        stack.enter_context(patched(mll, "mvn_logpdf", altered_logpdf))
+        stack.enter_context(patched(simm.ExactSIMM, "multi_gene_predict", altered_predict))
     else:
         raise ValueError(f"unknown fault {kind!r}")
     return stack

@@ -7,12 +7,17 @@ traffic mix or a per-layer metric is added by adding files:
 - ``BENCHMARK.json`` (the checkout's root): the cell's configuration,
   traffic mix and metrics;
 - ``configs/<config>.json``: the sizes, dtype, jitter, the ground truth's
-  ranges and the fit's start; its ``family`` names
-  ``families/<family>.py`` (the program's entries) and
-  ``reference/<family>.py`` (the plain reference);
+  ranges, the fit's start and the data's route (``data``: an exact draw
+  from the prior, or ``"quadrature"`` past the N an exact draw can hold;
+  ``lfmbench.inputs``); its ``family`` names ``families/<family>.py`` (the
+  program's entries, and in ``FAULTS`` the sites of the faults planted on
+  its path, ``lfmbench.faults``) and ``reference/<family>.py`` (the plain
+  reference);
 - ``traffic/<mix>.json``: the mix's parameters; its ``kind`` names
-  ``traffic/<kind>.py``, which sets up, runs the timed window (inside the
-  ``lfmbench.window`` span that a trace is read over) and compares;
+  ``traffic/<kind>.py``, which draws the inputs of its own, sets up, runs
+  the timed window (inside the ``lfmbench.window`` span that a trace is read
+  over), compares, and takes the readings its limits are set from
+  (``lfmbench.calibrate``);
 - ``workloads/<cell>.json``: the limits of the cell's comparison;
 - ``metrics/<metric>.py``: a per-layer metric's reader, ``read(readings)``,
   which returns a number or None when the trace holds nothing to read.

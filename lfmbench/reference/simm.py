@@ -112,6 +112,12 @@ def prior_mean(p, inp):
     return mean(p, inp["X"])
 
 
+def green(p, tau):
+    """Each gene's response at lag ``tau`` >= 0 to a unit impulse of the
+    force, S_j e^{-D_j tau} (``reference.quadrature``)."""
+    return p["sensitivity"] * torch.exp(-p["decay"] * tau)
+
+
 def predict(p, rows, y, variances, test, jitter, tf32: bool = False):
     """The posterior over expression at the ``test`` rows (flag 1): its
     mean and the diagonal of its covariance, with

@@ -98,6 +98,14 @@ def prior_mean(p, inp):
     return mean(p, inp["t"].shape[0])
 
 
+def green(p, tau):
+    """Each output's response at lag ``tau`` >= 0 to a unit impulse of the
+    force, S_j e^{-alpha_j tau} sin(omega_j tau) / omega_j
+    (``reference.quadrature``)."""
+    w = p["omega"]
+    return p["sensitivity"] * torch.exp(-p["alpha"] * tau) * torch.sin(w * tau) / w
+
+
 class Train:
     """The MLL's pieces over the gridded outputs, for ``reference.common``."""
 

@@ -1,6 +1,7 @@
 """The harness: cells found by name, runs at a tiny size on the CPU, the
 refusal without a card, the module check, and a cell added by files alone."""
 
+import importlib
 import json
 import os
 import re
@@ -22,11 +23,11 @@ TINY = {"genes": 4, "timepoints": 12}
 
 
 def tiny(cell):
+    """``cell`` at the tests' size: ``TINY`` genes and times, and the mix
+    as its traffic kind's ``TINY`` sets it."""
     cell.cfg.update(TINY)
-    if cell.mix["kind"] == "fit":
-        cell.mix.update(steps=5)
-    else:
-        cell.mix.update(test_times=10, draws=16, checked=3)
+    kind = importlib.import_module(f"lfmbench.traffic.{cell.mix['kind']}")
+    cell.mix.update(getattr(kind, "TINY", {}))
     return cell
 
 
@@ -76,7 +77,9 @@ def test_a_sound_run_at_a_tiny_size(name, traced):
         # no device on the CPU: the kernel readers find nothing and say nothing
         assert not {"factor_ms.train", "linalg_ms.predict", "gram_roofline.predict"} & set(
             out["metrics"])
-        assert {"step_mfu.train", "step_mfu.predict"} & set(out["metrics"])
+        # what the host's clock gives is read on any device
+        host = {m["name"] for m in cell.per_layer if m["source"] == "host_clock"}
+        assert host and host <= set(out["metrics"])
     else:
         assert set(out["metrics"]) == {m["name"] for m in cell.end_to_end}
     json.dumps(out, allow_nan=False)
@@ -161,3 +164,209 @@ def test_a_cell_a_mix_and_a_metric_added_by_files_alone(tmp_path):
     out = harness.run(cell, 9, 0.2, True, "cpu", time.perf_counter())
     assert out["correct"] and out["attempted"] >= 1
     assert out["metrics"]["host_ops.train"]["value"] > 0
+
+
+# A family, its reference, a traffic kind and the family's fault sites, each
+# a new file: what a sparse cell at N beyond an exact draw brings.
+_STUB_CONFIG = {
+    "name": "stub-quad", "source": "a stub", "family": "stub", "data": "quadrature",
+    "oversample": 4, "genes": 6, "timepoints": 40, "t_max": 12.0, "dtype": "float64",
+    "jitter": 1e-4, "noise_std": 0.1, "start_spread": 0.1,
+    "truth": {"basal": [0.01, 0.1], "sensitivity": [0.5, 1.5], "decay": [0.2, 1.0],
+              "lengthscale": 2.5},
+    "start": {"basal": 0.05, "sensitivity": 1.0, "decay": 0.4, "lengthscale": 2.5,
+              "obs_stddev": 1.0}}
+
+_STUB_REFERENCE = '''
+"""A stub family's reference: a critically damped response, S t e^{-D t}."""
+import torch
+from lfmbench.reference.simm import BIJECTORS, LEAVES, PER_GENE, prior_mean  # noqa: F401
+
+
+def green(p, tau):
+    return p["sensitivity"] * tau * torch.exp(-p["decay"] * tau)
+
+
+def gene_means(y64, genes):
+    return y64.reshape(genes, -1).mean(dim=1)
+'''
+
+_STUB_FAMILY = '''
+"""A stub program: per-gene means of the expression, a minibatch at a time."""
+import sys
+
+import torch
+
+from lfmbench import faults
+
+HERE = sys.modules[__name__]
+
+
+def step(sums, y, genes):
+    return sums.index_add(0, genes, y)
+
+
+def finish(sums, counts):
+    return sums / counts
+
+
+def sweeper(cfg, mix, inp):
+    G, T, b = cfg["genes"], cfg["timepoints"], mix["batch"]
+    y, order = inp["y"], inp["order"]
+    gene = torch.arange(G, device=y.device).repeat_interleave(T)
+
+    def run():
+        sums = torch.zeros(G, dtype=y.dtype, device=y.device)
+        for a in range(0, order.numel(), b):
+            rows = order[a:a + b]
+            sums = HERE.step(sums, y[rows], gene[rows])
+        return HERE.finish(sums, float(T))
+
+    return run
+
+
+_step, _finish = step, finish
+
+
+def _half(sums, y, genes):
+    h = y.shape[0] // 2
+    return _step(sums, 2.0 * y[:h], genes[:h])
+
+
+FAULTS = {
+    "unchanged": lambda: faults.patched(HERE, "step", lambda sums, y, genes: sums),
+    "half": lambda: faults.patched(HERE, "step", _half),
+    "altered": lambda: faults.patched(HERE, "finish", lambda s, c: _finish(s, c) * (1 + 1e-3)),
+}
+'''
+
+_STUB_KIND = '''
+"""Traffic kind ``sweep``: whole passes over the rows in a seeded order."""
+import torch
+from torch.profiler import record_function
+
+from lfmbench import faults
+from lfmbench.trace import WINDOW_SPAN
+
+
+def draw_inputs(cfg, mix, family, truth, gen, dt, device):
+    n = cfg["genes"] * cfg["timepoints"]
+    return {"order": torch.randperm(n, generator=gen, device=device)}
+
+
+def setup(family, cfg, mix, inp):
+    run = family.sweeper(cfg, mix, inp)
+    return {"run": run, "answer": run()}
+
+
+def window(state, seconds, clock, sync):
+    k = 0
+    with record_function(WINDOW_SPAN):
+        t0 = clock()
+        while True:
+            state["answer"] = state["run"]()
+            k += 1
+            if clock() - t0 >= seconds:
+                break
+        sync()
+        span = clock() - t0
+    return {"window_s": span, "units": k, "attempted": k, "failed": 0,
+            "metrics": {"sweep_ms": 1e3 * span / k}}
+
+
+def free(state):
+    state.pop("run", None)
+
+
+def _gap(answer, ref):
+    return {"mean": float((answer.double() - ref).abs().max() / ref.abs().max())}
+
+
+def check(state, ref_family, cfg, mix, inp, seed):
+    return _gap(state["answer"], ref_family.gene_means(inp["y64"], cfg["genes"]))
+
+
+def readings(emit, family, ref_family, cfg, mix, inp, seed, control, fault_kinds, seconds,
+             sync):
+    ref = ref_family.gene_means(inp["y64"], cfg["genes"])
+    emit("program", _gap(setup(family, cfg, mix, inp)["answer"], ref))
+    if control:
+        emit("control", _gap(ref_family.gene_means(inp["y64"].float(), cfg["genes"]), ref))
+    for f in fault_kinds:
+        with faults.plant(f, family):
+            emit(f, _gap(setup(family, cfg, mix, inp)["answer"], ref))
+'''
+
+_STUB_DRIVE = '''
+import importlib, json, time
+from lfmbench import calibrate, faults, harness
+
+cell = harness.load_cell("stub-quad.sweep")
+family = importlib.import_module("lfmbench.families.stub")
+out = {"sound": harness.run(cell, 2**31 + 13, 0.2, True, "cpu", time.perf_counter()),
+       "kinds": list(faults.kinds(family)), "planted": {}}
+for kind in faults.kinds(family):
+    with faults.plant(kind, family):
+        out["planted"][kind] = harness.run(cell, 2**31 + 13, 0.2, False, "cpu",
+                                           time.perf_counter())
+out["readings"] = calibrate.readings(cell, 17, "cpu", control=True,
+                                     fault_kinds=faults.kinds(family), seconds=0.2)
+print(json.dumps(out))
+'''
+
+
+def _digests(bench):
+    import hashlib
+
+    return {p.relative_to(bench).as_posix(): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(bench.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_quadrature_family_a_traffic_kind_and_fault_sites_added_by_files_alone(tmp_path):
+    shutil.copytree(ROOT / "lfmbench", tmp_path / "lfmbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    bench = tmp_path / "lfmbench"
+    before = _digests(bench)
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "stub-quad", "source": "a stub",
+                            "file": "lfmbench/configs/stub-quad.json", "reduced": [],
+                            "why": "a stub family on the quadrature route"})
+    spec["workloads"].append({"name": "stub-quad.sweep", "config": "stub-quad",
+                              "traffic": "sweep8", "chips": 1, "why": "seeded passes"})
+    spec["end_to_end"].append({"name": "sweep_ms", "unit": "ms", "better": "lower",
+                               "bound": 0.05, "source": "host_clock",
+                               "workloads": ["stub-quad.sweep"]})
+    spec["per_layer"].append({"name": "host_ops.sweep", "unit": "ops/pass", "better": "lower",
+                              "source": "device_trace", "layer": "stub", "moves": "sweep_ms",
+                              "workloads": ["stub-quad.sweep"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    new = {"configs/stub-quad.json": json.dumps(_STUB_CONFIG),
+           "reference/stub.py": _STUB_REFERENCE, "families/stub.py": _STUB_FAMILY,
+           "traffic/sweep.py": _STUB_KIND,
+           "traffic/sweep8.json": json.dumps({"kind": "sweep", "batch": 8}),
+           "workloads/stub-quad.sweep.json": json.dumps({"limits": {"mean": 1e-9}}),
+           "metrics/host_ops.sweep.py": "def read(r):\n    return len(r.timeline.host) / r.units\n"}
+    for rel, text in new.items():
+        assert not (bench / rel).exists()
+        (bench / rel).write_text(text)
+    (tmp_path / "drive.py").write_text(_STUB_DRIVE)
+
+    # the checkout's lfmbench, not this one's, and the port from this root
+    p = subprocess.run([sys.executable, "drive.py"], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert p.returncode == 0, p.stderr
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    after = _digests(bench)
+    assert {k: after[k] for k in before} == before  # no file that was there changed
+
+    sound = out["sound"]
+    assert sound["correct"] is True, sound["checks"]
+    assert sound["metrics"]["host_ops.sweep"]["value"] > 0
+    assert out["kinds"] == ["unchanged", "half", "altered"]
+    for kind, run in out["planted"].items():
+        assert run["correct"] is False, (kind, run["checks"])
+        assert set(run["metrics"]) == {"setup_s", "peak_mem_gib", "sweep_ms"}
+    rows = {r["reading"]: r for r in out["readings"]}
+    assert list(rows) == ["program", "control", "unchanged", "half", "altered"]
+    assert rows["program"]["mean"] <= 1e-9
+    assert all(rows[k]["mean"] > 1e-9 for k in ("control", "unchanged", "half", "altered"))

@@ -24,7 +24,7 @@ import statistics
 import torch
 from torch.profiler import record_function
 
-from lfmbench import inputs
+from lfmbench import faults, inputs
 from lfmbench.trace import WINDOW_SPAN
 from lfmbench.reference import common, linalg
 
@@ -32,6 +32,8 @@ from lfmbench.reference import common, linalg
 # its state after one step holds (1 - B1) g.
 B1 = common.B1
 NEGLIGIBLE = 1e-3
+# The mix at the size the benchmark's CPU tests run it.
+TINY = {"steps": 5}
 
 
 def setup(family, cfg, mix, inp):
@@ -116,3 +118,30 @@ def reference_steps(ref_family, cfg, mix, inp, precise: bool = True):
 def check(state, ref_family, cfg, mix, inp, seed: int):
     ref = reference_steps(ref_family, cfg, mix, inp)
     return compare(state["first"], ref)
+
+
+def readings(emit, family, ref_family, cfg, mix, inp, seed: int, control: bool, fault_kinds,
+             seconds: float, sync):
+    """``lfmbench.calibrate``'s readings of one seed: set-up through the
+    fit's own call, with each leaf's gaps and norms beside the numbers."""
+    ref = reference_steps(ref_family, cfg, mix, inp)
+
+    def leaves(first):
+        return {"grad": leaf_gaps(first["grad"], ref["grad"], ref["grad"]),
+                "change": leaf_gaps(first["change"], ref["change"], ref["grad"]),
+                "norms": {part: {k: float(v.double().norm()) for k, v in first[part].items()}
+                          for part in ("grad", "change")},
+                "losses": first["losses"]}
+
+    first = setup(family, cfg, mix, inp)["first"]
+    row = emit("program", compare(first, ref))
+    row["leaves"] = leaves(first)
+    row["reference"] = {"norms": {part: {k: float(v.double().norm()) for k, v in
+                                         ref[part].items()} for part in ("grad", "change")},
+                        "losses": ref["losses"]}
+    if control:
+        ctrl = reference_steps(ref_family, cfg, mix, inp, precise=False)
+        emit("control", compare(ctrl, ref))["leaves"] = leaves(ctrl)
+    for f in fault_kinds:
+        with faults.plant(f, family):
+            emit(f, compare(setup(family, cfg, mix, inp)["first"], ref))

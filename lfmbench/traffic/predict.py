@@ -10,6 +10,11 @@ window ends at the end of the request during which its seconds pass;
 ``predict_ms`` is the window over all requests, ``predict_p95_ms`` the 95th
 percentile of every request's latency.
 
+The inputs (``draw_inputs``): the test rows, ``test_times`` points on
+``[0, test_t_max]`` for every gene, and ``draws`` hyperparameter draws, the
+truth with the mix's ``base_obs_stddev``, each entry scaled by
+``exp(spread * N(0, 1))``.
+
 The comparison (``check``): on ``checked`` requests drawn from the seed,
 the widest gap of the posterior mean over the largest reference mean, and
 of the covariance diagonal over the largest reference variance.
@@ -18,12 +23,31 @@ of the covariance diagonal over the largest reference variance.
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 from torch.profiler import record_function
 
+from lfmbench import faults, inputs
 from lfmbench.reference import linalg
 from lfmbench.trace import WINDOW_SPAN
+
+F64 = torch.float64
+# The mix at the size the benchmark's CPU tests run it.
+TINY = {"test_times": 10, "draws": 16, "checked": 3}
+
+
+def draw_inputs(cfg, mix, family, truth, gen, dt, device):
+    """``test`` (rows) and ``draws`` (a dict of leaves, one row a request)."""
+    G = cfg["genes"]
+    tt = torch.linspace(0.0, mix["test_t_max"], mix["test_times"], dtype=dt, device=device)
+    base = dict(truth, obs_stddev=torch.tensor(mix["base_obs_stddev"], dtype=F64,
+                                               device=device))
+    k = mix["draws"]
+    return {"test": inputs.rows(tt, G, device), "draws": {
+        name: (base[name] * torch.exp(mix["spread"] * torch.randn(
+            (k,) + tuple(base[name].shape), generator=gen, dtype=F64, device=device))).to(dt)
+        for name in family.LEAVES}}
 
 
 def setup(family, cfg, mix, inp):
@@ -89,3 +113,44 @@ def check(state, ref_family, cfg, mix, inp, seed: int):
         gaps = compare_one(state["answers"][k], reference_answer(ref_family, cfg, inp, d))
         worst = [max(w, g) for w, g in zip(worst, gaps)]
     return {"mean": worst[0], "var": worst[1]}
+
+
+def readings(emit, family, ref_family, cfg, mix, inp, seed: int, control: bool, fault_kinds,
+             seconds: float, sync):
+    """``lfmbench.calibrate``'s readings of one seed: a window of
+    ``seconds`` at the cell's own load, the checked requests drawn as a run
+    draws them; the worst gaps, and each over the reference's standard
+    deviation (``mean_z``) and variance (``var_rel``)."""
+    def run():
+        state = setup(family, cfg, mix, inp)
+        window(state, seconds, time.perf_counter, sync)
+        return state
+
+    refs = {}
+
+    def ref(k, precise=True):
+        if precise and k in refs:
+            return refs[k]
+        a = reference_answer(ref_family, cfg, inp, k % mix["draws"], precise)
+        if precise:
+            refs[k] = a
+        return a
+
+    def worst(answers, picks):
+        gaps = [compare_one(answers[k], ref(k)) for k in picks]
+        z = [float(((answers[k][0].double() - ref(k)[0]).abs() / ref(k)[1].sqrt()).max())
+             for k in picks]
+        rv = [float(((answers[k][1].double() - ref(k)[1]).abs() / ref(k)[1]).max())
+              for k in picks]
+        return {"mean": max(g[0] for g in gaps), "var": max(g[1] for g in gaps),
+                "mean_z": max(z), "var_rel": max(rv)}
+
+    state = run()
+    picks = sample(state, mix, seed)
+    emit("program", worst(state["answers"], picks))
+    if control:
+        emit("control", worst({k: ref(k, precise=False) for k in picks}, picks))
+    for f in fault_kinds:
+        with faults.plant(f, family):
+            state = run()
+        emit(f, worst(state["answers"], sample(state, mix, seed)))
